@@ -1,9 +1,10 @@
 """Build and load the package's CUDA kernels.
 
-On first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package into one
-shared library with a plain C interface, under ``_kernels/`` beside this file,
-named by a hash of the sources and flags; later loads of the same sources
-reuse it. The library is loaded with ``ctypes``: every pointer and the stream
+On first use, ``nvcc`` compiles every ``csrc/*.cu`` of this package (one
+process per source, all started together) and links the objects into one
+shared library with a plain C interface, under ``_kernels/`` beside this
+file, named by a hash of the sources and flags; later loads of the same
+sources reuse it. The library is loaded with ``ctypes``: every pointer and the stream
 are ``c_void_p``, every C entry point returns ``cudaGetLastError()`` after its
 launch.
 
@@ -32,18 +33,27 @@ KERNEL_DIR = Path(__file__).resolve().parent / "_kernels"
 # -Xptxas -v: registers, shared memory and spills per kernel, kept in the log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
+_F = ctypes.c_float
 SIGNATURES = {
     # starts cnts aoff srcf srci dstf dsti ntiles src_stride dst_stride ch
     # halo stream
     "splat_align": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I, _P),
     # attrs stride nchunks ch F S vol gx gy gz stream
     "splat_deposit": (_P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _P),
+    # q qstride piece_q0 piece_qn piece_pid npieces run_start run_len nruns
+    # xyz xstride periodic L0 L1 L2 iL0 iL1 iL2 out_d2 out_slot k row_base
+    # stream
+    "knn_topk": (_P, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _I, _F, _F,
+                 _F, _F, _F, _F, _P, _P, _I, _I, _P),
+    # ... out ncand row_base stream
+    "knn_dist": (_P, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _I, _F, _F,
+                 _F, _F, _F, _F, _P, _I, _I, _P),
 }
 
 
@@ -85,24 +95,27 @@ def build(out_dir: Path = KERNEL_DIR) -> Library:
     if not out.exists():
         nvcc = find_nvcc()
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc or "nvcc", *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in cus)]
+        objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in cus]
+        cmds = [[nvcc or "nvcc", *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                for p, o in zip(cus, objs)]
+        link = [nvcc or "nvcc", *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                *(str(o) for o in objs)]
         if nvcc is None:
             raise RuntimeError(
                 "building the CUDA kernels needs nvcc, found neither on PATH "
-                f"nor under $CUDA_HOME/bin; command: {' '.join(cmd)}"
+                f"nor under $CUDA_HOME/bin; command: {' '.join(cmds[0])}"
             )
         out.parent.mkdir(parents=True, exist_ok=True)
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        try:
+            log = _run_all(cmds) + _run_all([link])
+        except BaseException:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"kernel build failed (exit {proc.returncode}): "
-                f"{' '.join(cmd)}\n{log}"
-            )
+            raise
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
+        seconds = time.perf_counter() - t0
         # atomic: a concurrent build never sees half a file
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
@@ -113,6 +126,22 @@ def build(out_dir: Path = KERNEL_DIR) -> Library:
     lib.nbodyhpc_cuda_error_string.argtypes = (ctypes.c_int,)
     lib.nbodyhpc_cuda_error_string.restype = ctypes.c_char_p
     return Library(lib, out, seconds, log)
+
+
+def _run_all(cmds) -> str:
+    """Run the commands in parallel; their joined output, or a RuntimeError
+    naming the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"kernel build failed (exit {p.returncode}): "
+                f"{' '.join(c)}\n{o}"
+            )
+    return "".join(outs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -283,7 +283,11 @@ def test_rasterizer_demo_cli():
 def test_port_imports_no_jax():
     code = ("import sys, nbodyhpc_tpu_torch.rasterizer, "
             "nbodyhpc_tpu_torch.interop, nbodyhpc_tpu_torch.ops.splat_cuda, "
-            "nbodyhpc_tpu_torch.cli.rasterizer_demo; "
+            "nbodyhpc_tpu_torch.cli.rasterizer_demo, "
+            "nbodyhpc_tpu_torch.kdtree, nbodyhpc_tpu_torch.ops.knn_device, "
+            "nbodyhpc_tpu_torch.ops.knn_cuda, nbodyhpc_tpu_torch.ops.ball, "
+            "nbodyhpc_tpu_torch.utils.stats, nbodyhpc_tpu_torch.utils.philox, "
+            "nbodyhpc_tpu_torch.cli.kdtree_bench; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nbodyhpc_tpu.'))]; "
             "assert not bad, bad")
