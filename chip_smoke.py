@@ -9,25 +9,48 @@ a 1024^3 grid, periodic, subsample 4. Every phase is an assertion; any
 failure exits non-zero before the result line. Needs one CUDA device and
 ``nvcc`` (sm_90a); run from the repository root:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline-deposit PATH]
+
+``--baseline-deposit`` builds another source of the deposit kernel (the
+same C entry point, for example an earlier commit's
+``csrc/splat_deposit.cu``) and times it against the package's kernel in
+turns, on the full-size streams and in the device render.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
 the line before it lists every kernel with its launches on the main path,
-its largest difference from its plain version and both times.
+its largest difference from its plain version, both times and its bound:
+the least time the card could take for the same work, the larger of its
+bytes over the memory rate and its float32 instructions over the
+instruction rate.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
 SEED = 2024
 # atomics reorder float sums; built with --fmad=false, so no subcell quantum
 RTOL, ATOL = 2e-5, 1e-6
+# one H100 SXM at its 700 W limit (NVIDIA's data sheet): HBM bytes/s, and
+# float32 instructions/s (67 TFLOP/s counting an FMA as two operations)
+HBM_BYTES_PER_S = 3.35e12
+FP32_INSTR_PER_S = 3.35e13
+# float32 instructions per (query, candidate) pair, from the kernels' inner
+# loops (periodic): per axis sub, mul by 1/L, rint, mul by L, sub (15), then
+# dy*dy and two fmaf (3); B3 adds the compare against its k-th best
+B3_INSTR, B4_INSTR = 19, 18
+# bytes a deposit must move: the attribute row it reads (7 floats), and a
+# read and a write of each voxel it changes
+DEPOSIT_ROW_BYTES, VOXEL_RMW_BYTES = 28, 8
 
 
 def log(msg: str) -> None:
@@ -66,6 +89,96 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def bound(nbytes: float, ops: float = 0.0):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the float32 instructions over the instruction rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def event_ms(fn) -> float:
+    """Device time of one ``fn()`` (CUDA events)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1)
+
+
+def gated_voxels(attrs, nchunks: int, geom, grid) -> int:
+    """Voxels the oracle's gates admit in the first ``nchunks`` chunks of a
+    bucket stream, inside window and grid: per particle and z slice of its
+    window the z-cull, and the number of x (times y) voxels whose centre
+    offsets lie in [-half, half), found by a search over the window's
+    ascending offsets. A sub-pixel particle counts its one voxel."""
+    F = geom.F
+    a = attrs[:, :nchunks * geom.CH]
+    a = a[:, (a[4] != 0.0) | (a[5] != 0.0)]
+    g = torch.tensor(grid, device=a.device)[:, None, None]
+    off = torch.arange(F, device=a.device)
+    total, step = 0, 1 << 19
+    for s in range(0, a.shape[1], step):
+        p = a[0:3, s:s + step]
+        r = a[3, s:s + step]
+        sub = a[6, s:s + step] > 0.5
+        v = torch.ceil(p - (F / 2 + 0.5)).int()[:, :, None] + off  # (3, m, F)
+        vf = v.float()
+        inside = (v >= 0) & (v < g)
+        zoff = p[2, :, None] - (vf[2] + 0.5)
+        zclip = (zoff.abs() <= r[:, None] + 1.0) & inside[2]
+        half = torch.ceil(torch.sqrt(torch.clamp_min(
+            (r * r)[:, None] - zoff * zoff, 0.0))) + 1.0
+        n = []
+        for d in range(2):
+            c = (vf[d] + 0.5) - p[d, :, None]
+            c = torch.where(v[d] < 0, float("-inf"),
+                            torch.where(v[d] >= g[d], float("inf"), c))
+            n.append(torch.searchsorted(c, half) - torch.searchsorted(c, -half))
+        big = (n[0] * n[1] * zclip).sum(1)
+        vsub = torch.stack([torch.floor(p[0]), torch.floor(p[1]),
+                            torch.ceil(p[2]) - 1]).long()
+        one = ((vsub >= 0) & (vsub < g[:, :, 0])).all(0).long()
+        total += int(torch.where(sub, one, big).sum())
+    return total
+
+
+def load_deposit_source(src: str):
+    """The ``splat_deposit`` entry point of another deposit-kernel source,
+    built with the package's flags into its gitignored kernel directory."""
+    import hashlib
+
+    from nbodyhpc_tpu_torch import _build
+
+    tag = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
+    out = _build.KERNEL_DIR / f"libbaseline_deposit_{tag}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [_build.find_nvcc() or "nvcc", *_build.NVCC_FLAGS, "-shared",
+               "-o", str(out), src]
+        done = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=600)
+        if done.returncode:
+            fail(f"baseline build failed: {' '.join(cmd)}\n{done.stdout}"
+                 f"{done.stderr}")
+    fn = ctypes.CDLL(str(out)).splat_deposit
+    fn.argtypes = _build.SIGNATURES["splat_deposit"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+class _SwappedDeposit:
+    """The kernel library with ``splat_deposit`` replaced."""
+
+    def __init__(self, lib, fn):
+        self._lib, self.splat_deposit = lib, fn
+
+    def __getattr__(self, name):
+        return getattr(self._lib, name)
 
 
 def lognormal_workload(n: int, grid: int, gen: torch.Generator):
@@ -246,12 +359,20 @@ def knn_phases(dev: torch.device, gen: torch.Generator) -> list:
             and torch.equal(sk, sr[:, :KNN_K])):
         fail("kNN-1: B3 is not bit-equal to its plain version")
     b3_err = max_err(dk, dr[:, :KNN_K])
+    # derived: every (query, candidate) pair of the prefix, each query and
+    # its k results once, each candidate point once
+    pc = plan.points[st.piece_pid[:m].long()].double()
+    b3_pairs = float((st.piece_qn[:m].double() * pc).sum())
+    b3_bound_ms, b3_bound_by = bound(
+        12 * nrows + 8 * KNN_K * nrows + 12 * min(float(pc.sum()), KNN_N),
+        B3_INSTR * b3_pairs)
     b3_ms = cuda_ms(lambda: kc.knn_topk(*args3, KNN_K, nrows=nrows), 10)
     b3_plain_ms = cuda_ms(
         lambda: kc.knn_topk_reference(*args3, KNN_K, nrows=nrows), 1)
     log(f"kNN-1: B3 bit-equal to plain on the first {m} pieces ({nrows} "
         f"queries, k={KNN_K}): kernel {b3_ms:.3f} ms, plain "
-        f"{b3_plain_ms:.3f} ms")
+        f"{b3_plain_ms:.3f} ms; {b3_pairs:.0f} candidate pairs x {B3_INSTR} "
+        f"instructions: bound {b3_bound_ms:.3f} ms ({b3_bound_by})")
     del args3, dk, sk, dr, sr
 
     # ---- kNN-2: B4 vs plain, k > 128 ---------------------------------------
@@ -272,6 +393,12 @@ def knn_phases(dev: torch.device, gen: torch.Generator) -> list:
     if not bits_equal(bk, br):
         fail("kNN-2: B4 is not bit-equal to its plain version")
     b4_err = max_err(bk, br)
+    # derived: the block written once, each query and candidate read once
+    pc4 = plan2.points[st2.piece_pid.long()].double()
+    b4_pairs = float((st2.piece_qn.double() * pc4).sum())
+    b4_bound_ms, b4_bound_by = bound(
+        4 * bk.numel() + 12 * q2 + 12 * min(float(pc4.sum()), n2),
+        B4_INSTR * b4_pairs)
     sel, _ = kc.select_block(br, k2 + 1, st2.pid, plan2.run_start,
                              plan2.run_len)
     if int(((sel[:, -2] == sel[:, -1]) & torch.isfinite(sel[:, -1])).sum()):
@@ -281,7 +408,8 @@ def knn_phases(dev: torch.device, gen: torch.Generator) -> list:
     log(f"kNN-2: B4 bit-equal to plain: {n2} points periodic, plan "
         f"{'FULLZ' if plan2.fullz else 'ZSEG'}, {q2} queries "
         f"in {st2.piece_q0.numel()} pieces, block {tuple(bk.shape)}: kernel "
-        f"{b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms")
+        f"{b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms, bound "
+        f"{b4_bound_ms:.3f} ms ({b4_bound_by}; {b4_pairs:.0f} pairs)")
     del args4, bk, br, sel
 
     # ---- kNN-3: the main path at full size ---------------------------------
@@ -382,16 +510,25 @@ def knn_phases(dev: torch.device, gen: torch.Generator) -> list:
          "source": "nbodyhpc_tpu_torch/csrc/knn_topk.cu",
          "replaces": "nbodyhpc_tpu/ops/knn_pallas.py:204",
          "launches": b3_launches, "max_abs_err": b3_err,
-         "ms": b3_ms, "plain_ms": b3_plain_ms},
+         "ms": b3_ms, "plain_ms": b3_plain_ms,
+         "bound_ms": b3_bound_ms, "bound_by": b3_bound_by,
+         "library_ms": None},
         {"name": "knn_dist", "route": "cuda",
          "source": "nbodyhpc_tpu_torch/csrc/knn_dist.cu",
          "replaces": "nbodyhpc_tpu/ops/knn_pallas.py:185",
          "launches": b4_launches, "max_abs_err": b4_err,
-         "ms": b4_ms, "plain_ms": b4_plain_ms},
+         "ms": b4_ms, "plain_ms": b4_plain_ms,
+         "bound_ms": b4_bound_ms, "bound_by": b4_bound_by,
+         "library_ms": None},
     ]
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline-deposit", metavar="PATH",
+                    help="another splat_deposit.cu to time against the "
+                         "package's kernel, in turns")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
@@ -452,11 +589,14 @@ def main() -> int:
             and torch.equal(ki, ri)):
         fail("phase 2: align kernel output is not bit-equal to its plain "
              "version")
+    align_bound_ms, align_bound_by = bound(
+        48 * (r1 - r0) + 48 * nrows + 12 * starts.numel())
     align_ms = cuda_ms(lambda: sc.align(*args), 20)
     align_plain_ms = cuda_ms(lambda: sc.align_reference(*args), 20)
     log(f"phase 2: align kernel bit-equal to plain on the G8 stream "
         f"({r1 - r0} rows, {ntiles_used} tiles, {nrows} aligned rows); "
-        f"kernel {align_ms:.3f} ms, plain {align_plain_ms:.3f} ms")
+        f"kernel {align_ms:.3f} ms, plain {align_plain_ms:.3f} ms, bound "
+        f"{align_bound_ms:.3f} ms ({align_bound_by})")
     del prep, srcf, srci, kf, ki, rf, ri
 
     # ---- phase 3: B2 deposit kernel vs plain ----------------------------
@@ -489,7 +629,7 @@ def main() -> int:
     # per SM), so the kernel runs at full occupancy while the plain version
     # stays within seconds
     k_max = 8 * torch.cuda.get_device_properties(0).multi_processor_count
-    dep_ms = dep_plain_ms = 0.0
+    dep_ms = dep_plain_ms = dep_bytes = 0.0
     err_full = 0.0
     vol_k = torch.empty((g_full,) * 3, device=dev)
     vol_r = torch.empty((g_full,) * 3, device=dev)
@@ -506,6 +646,8 @@ def main() -> int:
         torch.cuda.synchronize()
         e = check_close(f"phase 3 deposit G{geom.F} (full size)", vol_k, vol_r)
         err_full = max(err_full, e)
+        dep_bytes += (k * geom.CH * DEPOSIT_ROW_BYTES
+                      + VOXEL_RMW_BYTES * int(torch.count_nonzero(vol_k)))
         tk = cuda_ms(lambda: sc.deposit(attrs, k, vol_k, geom), 3)
         tr = cuda_ms(lambda: sc.deposit_reference(attrs, k, vol_r, geom), 1)
         dep_ms += tk
@@ -513,7 +655,66 @@ def main() -> int:
         log(f"phase 3: deposit G{geom.F} full-size stream, first {k} of {nch} "
             f"chunks: kernel {tk:.3f} ms, plain {tr:.3f} ms, "
             f"max abs err {e:.3e}")
-    del vol_k, vol_r, attrs, stream
+    dep_bound_ms, dep_bound_by = bound(dep_bytes)
+
+    # (c) every bucket's whole stream into a zeroed volume: the kernel's
+    # time (CUDA events, one launch each), the voxels it changes (which set
+    # the byte bound), and the voxels the gates admit; with a baseline
+    # source, both kernels in turns and their fields held to each other
+    base_lib = None
+    if opts.baseline_deposit:
+        real = _build.load()
+        base_lib = real._replace(lib=_SwappedDeposit(
+            real.lib, load_deposit_source(opts.baseline_deposit)))
+
+    def kernel_of(who: str):
+        """Context in which ``sc.deposit`` launches the package's kernel
+        ("new") or the baseline source's ("base")."""
+        if who == "new":
+            return contextlib.nullcontext()
+        return mock.patch.object(_build, "load", lambda: base_lib)
+
+    full_ms = full_base_ms = 0.0
+    for bi, geom in enumerate(sc.BUCKETS):
+        stream = sc.bucket_stream(part, bi)
+        if stream is None:
+            continue
+        attrs, _, nch = stream
+        turns = (("base", "new", "new", "base") * 2 if base_lib
+                 else ("new",) * 3)
+        times = {"new": [], "base": []}
+        for who in turns:
+            vol = vol_k if who == "new" else vol_r
+            vol.zero_()
+            with kernel_of(who):
+                times[who].append(event_ms(
+                    lambda: sc.deposit(attrs, nch, vol, geom)))
+        nnz = int(torch.count_nonzero(vol_k))
+        gated = gated_voxels(attrs, nch, geom, part.grid)
+        b_ms, b_by = bound(nch * geom.CH * DEPOSIT_ROW_BYTES
+                           + VOXEL_RMW_BYTES * nnz)
+        t_new = sum(times["new"]) / len(times["new"])
+        full_ms += t_new
+        log(f"phase 3: deposit G{geom.F} whole stream ({nch} chunks, "
+            f"{nch * geom.CH} rows) into a zeroed {g_full}^3 volume: kernel "
+            f"{t_new:.3f} ms (launches {[round(t, 3) for t in times['new']]});"
+            f" {nnz} voxels changed, {gated} gated; bound {b_ms:.3f} ms "
+            f"({b_by}), share of bound {b_ms / t_new:.4f}; "
+            f"{t_new * 1e6 / max(gated, 1):.4f} ns per gated voxel")
+        if base_lib:
+            e = check_close(f"phase 3 deposit G{geom.F} kernel vs baseline",
+                            vol_k, vol_r)
+            t_base = sum(times["base"]) / len(times["base"])
+            full_base_ms += t_base
+            log(f"phase 3: deposit G{geom.F} whole stream, baseline source: "
+                f"{t_base:.3f} ms (launches "
+                f"{[round(t, 3) for t in times['base']]}), "
+                f"{t_base / t_new:.2f}x the kernel's time; fields agree, "
+                f"max abs err {e:.3e}")
+    log(f"phase 3: whole-stream deposits, all buckets: kernel "
+        f"{full_ms:.3f} ms" + (f", baseline source {full_base_ms:.3f} ms"
+                               if base_lib else ""))
+    del vol_k, vol_r, attrs, stream, vol
     torch.cuda.empty_cache()
 
     # ---- phase 4: main path, moderate size, against the CPU -------------
@@ -566,12 +767,27 @@ def main() -> int:
     del vol
 
     # the device render alone: pre-partitioned particles, field left on
-    # the card (no ghosts, no sort, no copy to the host)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dvol = sc.splat_volume(part, None, None, float(g_full), (g_full,) * 3)
-    torch.cuda.synchronize()
-    engine_s = time.perf_counter() - t0
+    # the card (no ghosts, no sort, no copy to the host); with a baseline
+    # source, renders with either deposit kernel in turns
+    def device_render():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sc.splat_volume(part, None, None, float(g_full), (g_full,) * 3)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    dvol, engine_s = device_render()
+    if base_lib:
+        del dvol
+        turns_s = {"new": [], "base": []}
+        for who in ("base", "new", "new", "base"):
+            with kernel_of(who):
+                dvol, t = device_render()
+            turns_s[who].append(t)
+            del dvol
+        log(f"phase 5: device render of the partition in turns (s): "
+            f"baseline deposit {turns_s['base']}, kernel {turns_s['new']}")
+        dvol, engine_s = device_render()
     dratio = float(dvol.sum(dtype=torch.float64)) / float(
         w.sum(dtype=torch.float64))
     del dvol
@@ -592,12 +808,16 @@ def main() -> int:
          "source": "nbodyhpc_tpu_torch/csrc/splat_align.cu",
          "replaces": "nbodyhpc_tpu/ops/splat_pallas.py:518",
          "launches": launches["align"], "max_abs_err": 0.0,
-         "ms": align_ms, "plain_ms": align_plain_ms},
+         "ms": align_ms, "plain_ms": align_plain_ms,
+         "bound_ms": align_bound_ms, "bound_by": align_bound_by,
+         "library_ms": None},
         {"name": "splat_deposit", "route": "cuda",
          "source": "nbodyhpc_tpu_torch/csrc/splat_deposit.cu",
          "replaces": "nbodyhpc_tpu/ops/splat_pallas.py:201",
          "launches": launches["deposit"], "max_abs_err": max(err3, err_full),
-         "ms": dep_ms, "plain_ms": dep_plain_ms},
+         "ms": dep_ms, "plain_ms": dep_plain_ms,
+         "bound_ms": dep_bound_ms, "bound_by": dep_bound_by,
+         "library_ms": None},
     ]
     kernels += knn_phases(dev, gen)
     print(json.dumps({"kernels": kernels}))

@@ -56,8 +56,17 @@ def required_halfwidth(max_rpx: float) -> int:
 
 
 def _subcell_centers(subsample: int, device) -> torch.Tensor:
-    return (torch.arange(subsample, dtype=torch.float32, device=device)
-            + 0.5) / subsample
+    # made on the CPU: a CUDA division by a Python scalar multiplies by its
+    # rounded reciprocal, which is not the quotient unless S is a power of 2
+    return ((torch.arange(subsample, dtype=torch.float32) + 0.5)
+            / subsample).to(device)
+
+
+def _subcell_fraction(count, subsample: int) -> torch.Tensor:
+    """count / S^3 in float32, the true quotient on every device (a tensor
+    divisor, so CUDA does not multiply by a rounded reciprocal)."""
+    s3 = torch.full((), float(subsample**3), device=count.device)
+    return count.float() / s3
 
 
 def footprint_terms(ppx, rpx, base, size: int, subsample: int):
@@ -118,7 +127,7 @@ def footprint_terms(ppx, rpx, base, size: int, subsample: int):
             m = ax[:, :, a][:, :, None, None, None] + ay[:, :, b][:, None, :, None, None]
             inside = az[:, None, None, :, :] < r2 - m
             count += inside.sum(-1, dtype=torch.int32)
-    overlap = count.float() / float(subsample**3)
+    overlap = _subcell_fraction(count, subsample)
 
     # --- sub-pixel voxel (triangle.vert:47-60) ---
     sub_x = vx == torch.floor(px).to(torch.int32)[:, None]
@@ -200,7 +209,7 @@ def footprint_values_2d(ppx, w, rpx, ppu: float, halfwidth: int,
         for c in range(subsample):
             inside = az[:, c][:, None, None, None] < rab
             count += inside.sum(-1, dtype=torch.int32)
-    overlap = count.float() / float(subsample**3)
+    overlap = _subcell_fraction(count, subsample)
 
     volume = FOUR_THIRDS_PI * (rpx * rpx * rpx)
     big_val = (w / volume)[:, None, None] * overlap * cover

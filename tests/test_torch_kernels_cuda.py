@@ -80,6 +80,113 @@ def test_deposit_kernel_matches_plain(cuda, bi, subsample):
     torch.testing.assert_close(vk, vr, rtol=RTOL, atol=ATOL)
 
 
+def _deposit_pairs(device, ppx, w, rpx, grid, subsample, zero_every=0):
+    """Every non-empty bucket of the particles (pixel units) through the
+    kernel and the plain version, each into a zeroed ``grid`` volume.
+    ``zero_every``: zero the weights of every n-th aligned row first (pad
+    rows that still carry positions). Returns [(geom, kernel, plain)]."""
+    part = sc.prepartition(ppx.to(device), w.to(device), rpx.to(device), 1.0,
+                           grid)
+    out = []
+    for bi, geom in enumerate(sc.BUCKETS):
+        stream = sc.bucket_stream(part, bi)
+        if stream is None:
+            continue
+        attrs, _, nch = stream
+        if zero_every:
+            attrs[4:6, ::zero_every] = 0.0
+        before = sc.deposit.launches
+        vk = sc.deposit(attrs, nch, torch.zeros(grid, device=device), geom,
+                        subsample)
+        assert sc.deposit.launches == before + 1
+        vr = sc.deposit_reference(attrs, nch,
+                                  torch.zeros(grid, device=device), geom,
+                                  subsample)
+        out.append((geom, vk, vr))
+    torch.cuda.synchronize()
+    assert len(out) == len(sc.BUCKETS)
+    return out
+
+
+def _spread(n, rng, subsample=None):
+    """n radii over every bucket and sub-pixel, float32; on the 1/(2S)
+    lattice when ``subsample`` is given."""
+    rpx = np.concatenate([rng.uniform(0.05, 0.45, n // 8),
+                          rng.uniform(0.5, 15.0, n - n // 8)])
+    if subsample is not None:
+        q = 2 * subsample
+        rpx = np.maximum(np.round(rpx * q), 1) / q
+    return torch.from_numpy(rpx.astype(np.float32))
+
+
+@pytest.mark.parametrize("subsample", [1, 3, 4, 16])
+def test_deposit_kernel_knife_edge_lattice(cuda, subsample):
+    """Positions and radii on the 1/(2S) subcell lattice, where subcell
+    compares tie, on a non-cubic grid with gz % 4 != 0."""
+    grid = (40, 36, 30)
+    rng = np.random.Generator(np.random.Philox(21 + subsample))
+    n = 800
+    q = 2 * subsample
+    ppx = torch.from_numpy(
+        (rng.integers(0, 30 * q, (n, 3)) / q).astype(np.float32))
+    w = torch.from_numpy((rng.random(n) + 0.5).astype(np.float32))
+    for geom, vk, vr in _deposit_pairs(cuda, ppx, w, _spread(n, rng, subsample),
+                                       grid, subsample):
+        assert float(vr.sum()) > 0, geom
+        torch.testing.assert_close(vk, vr, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("grid", [(37, 45, 30), (36, 44, 32)])
+def test_deposit_kernel_particles_straddling_every_face(cuda, grid):
+    """Particles centred within a radius of each of the six faces, inside
+    and outside the grid; gz % 4 != 0 and gz % 4 == 0."""
+    rng = np.random.Generator(np.random.Philox(31))
+    n = 1200
+    g = np.array(grid, np.float64)
+    pos = rng.random((n, 3)) * g
+    axis = rng.integers(0, 3, n)
+    side = rng.integers(0, 2, n)
+    pos[np.arange(n), axis] = side * g[axis] + rng.uniform(-6.0, 6.0, n)
+    ppx = torch.from_numpy(pos.astype(np.float32))
+    w = torch.from_numpy((rng.random(n) + 0.5).astype(np.float32))
+    for geom, vk, vr in _deposit_pairs(cuda, ppx, w, _spread(n, rng), grid, 4):
+        torch.testing.assert_close(vk, vr, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("subsample", [4, 3])
+def test_deposit_kernel_skips_zero_weight_rows(cuda, subsample):
+    grid = (48, 40, 36)
+    rng = np.random.Generator(np.random.Philox(41))
+    n = 1500
+    ppx = torch.from_numpy((rng.random((n, 3)) * grid).astype(np.float32))
+    w = torch.from_numpy((rng.random(n) + 0.5).astype(np.float32))
+    for geom, vk, vr in _deposit_pairs(cuda, ppx, w, _spread(n, rng), grid,
+                                       subsample, zero_every=3):
+        torch.testing.assert_close(vk, vr, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("subsample", [4, 3])
+@pytest.mark.parametrize("gz", [102, 136])
+def test_deposit_kernel_bit_equal_without_overlap(cuda, gz, subsample):
+    """Windows 34 px apart never overlap, so each voxel receives one
+    contribution and no sum is reordered: the kernel must equal the plain
+    version bit for bit, and a single wrong subcell count would show."""
+    grid = (136, 136, gz)
+    rng = np.random.Generator(np.random.Philox(51 + gz + subsample))
+    cells = np.stack(np.meshgrid(*(np.arange(g // 34) for g in grid),
+                                 indexing="ij"), -1).reshape(-1, 3)
+    n = cells.shape[0]
+    pos = 17.0 + 34.0 * cells + rng.uniform(-0.5, 0.5, (n, 3))
+    ppx = torch.from_numpy(pos.astype(np.float32))
+    w = torch.from_numpy((rng.random(n) + 0.5).astype(np.float32))
+    rpx = torch.from_numpy(np.resize(
+        np.array([0.3, 1.7, 2.6, 3.4, 4.5, 6.2, 9.5, 14.8]), n
+    ).astype(np.float32) + rng.uniform(0.0, 0.1, n).astype(np.float32))
+    for geom, vk, vr in _deposit_pairs(cuda, ppx, w, rpx, grid, subsample):
+        assert float(vr.sum()) > 0, geom
+        assert torch.equal(vk.view(torch.int32), vr.view(torch.int32)), geom
+
+
 def test_engine_on_card_matches_cpu(cuda):
     g = 48
     pos, w, rpx = _particles(3000, 9, rpx_hi=17.0)
