@@ -9,12 +9,17 @@ a 1024^3 grid, periodic, subsample 4. Every phase is an assertion; any
 failure exits non-zero before the result line. Needs one CUDA device and
 ``nvcc`` (sm_90a); run from the repository root:
 
-    python3 chip_smoke.py [--baseline-deposit PATH]
+    python3 chip_smoke.py [--baseline-deposit PATH] [--baseline-topk PATH]
 
 ``--baseline-deposit`` builds another source of the deposit kernel (the
 same C entry point, for example an earlier commit's
 ``csrc/splat_deposit.cu``) and times it against the package's kernel in
 turns, on the full-size streams and in the device render.
+``--baseline-topk`` does the same for the k-NN top-k kernel B3, over all
+pieces of the harness at every k that kNN-1 runs, with a ``knn_topk.cu``
+of either design: the full-scan one (the C entry point without the cell
+grid, as of the commit before B3's redesign) or one with the package's own
+C entry point. Its ``knn_common.h`` must lie beside it.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -44,9 +49,10 @@ RTOL, ATOL = 2e-5, 1e-6
 # float32 instructions/s (67 TFLOP/s counting an FMA as two operations)
 HBM_BYTES_PER_S = 3.35e12
 FP32_INSTR_PER_S = 3.35e13
-# float32 instructions per (query, candidate) pair, from the kernels' inner
-# loops (periodic): per axis sub, mul by 1/L, rint, mul by L, sub (15), then
-# dy*dy and two fmaf (3); B3 adds the compare against its k-th best
+# float32 instructions per (query, candidate) pair, counted from the
+# function, not from a kernel's code (periodic): per axis sub, mul by 1/L,
+# round, mul by L, sub (15), then dy*dy and two fmaf (3); B3 adds the
+# compare against its k-th best
 B3_INSTR, B4_INSTR = 19, 18
 # bytes a deposit must move: the attribute row it reads (7 floats), and a
 # read and a write of each voxel it changes
@@ -147,15 +153,19 @@ def gated_voxels(attrs, nchunks: int, geom, grid) -> int:
     return total
 
 
-def load_deposit_source(src: str):
-    """The ``splat_deposit`` entry point of another deposit-kernel source,
-    built with the package's flags into its gitignored kernel directory."""
+def load_baseline_source(src: str, entry: str, argtypes):
+    """The C entry point ``entry`` of another kernel source (with the
+    headers beside it), built with the package's flags into its gitignored
+    kernel directory."""
     import hashlib
+    from pathlib import Path
 
     from nbodyhpc_tpu_torch import _build
 
-    tag = hashlib.sha256(open(src, "rb").read()).hexdigest()[:16]
-    out = _build.KERNEL_DIR / f"libbaseline_deposit_{tag}.so"
+    h = hashlib.sha256()
+    for f in [Path(src), *sorted(Path(src).parent.glob("*.h"))]:
+        h.update(f.read_bytes())
+    out = _build.KERNEL_DIR / f"libbaseline_{entry}_{h.hexdigest()[:16]}.so"
     if not out.exists():
         out.parent.mkdir(parents=True, exist_ok=True)
         cmd = [_build.find_nvcc() or "nvcc", *_build.NVCC_FLAGS, "-shared",
@@ -165,20 +175,114 @@ def load_deposit_source(src: str):
         if done.returncode:
             fail(f"baseline build failed: {' '.join(cmd)}\n{done.stdout}"
                  f"{done.stderr}")
-    fn = ctypes.CDLL(str(out)).splat_deposit
-    fn.argtypes = _build.SIGNATURES["splat_deposit"]
+    fn = getattr(ctypes.CDLL(str(out)), entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-class _SwappedDeposit:
-    """The kernel library with ``splat_deposit`` replaced."""
+# the full-scan B3's C entry point: q qstride piece_q0 piece_qn piece_pid
+# npieces run_start run_len nruns xyz xstride periodic L0 L1 L2 iL0 iL1 iL2
+# out_d2 out_slot k row_base stream
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
+FULLSCAN_TOPK_ARGS = (_P, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _I,
+                      *(_F,) * 6, _P, _P, _I, _I, _P)
 
-    def __init__(self, lib, fn):
-        self._lib, self.splat_deposit = lib, fn
+
+def fullscan_topk(fn, q, q0, qn, pid, run_start, run_len, xyz, box, k: int):
+    """(d2, slot) [Q, k] of the full-scan B3 entry point ``fn`` over every
+    piece (one block per piece, every candidate scored)."""
+    from nbodyhpc_tpu_torch import _build
+    from nbodyhpc_tpu_torch.ops import knn_cuda as kc
+
+    nrows = q.shape[1]
+    out_d = torch.empty((nrows, k), device=q.device)
+    out_s = torch.empty((nrows, k), dtype=torch.int32, device=q.device)
+    err = fn(q.data_ptr(), nrows, q0.data_ptr(), qn.data_ptr(),
+             pid.data_ptr(), q0.numel(), run_start.data_ptr(),
+             run_len.data_ptr(), run_start.shape[1], xyz.data_ptr(),
+             xyz.shape[1], *kc._box_args(box), out_d.data_ptr(),
+             out_s.data_ptr(), k, 0,
+             torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "full-scan knn_topk launch")
+    return out_d, out_s
+
+
+def baseline_topk(path: str):
+    """``fn(args, k, grid) -> (d2, slot)`` running the B3 of another
+    ``knn_topk.cu`` over all pieces: a full-scan source through its own C
+    entry point, or one with the package's entry point (it reads the cell
+    grid) through ``knn_cuda.knn_topk``."""
+    from pathlib import Path
+
+    from nbodyhpc_tpu_torch import _build
+    from nbodyhpc_tpu_torch.ops import knn_cuda as kc
+
+    if "run_cell" not in Path(path).read_text():
+        fn = load_baseline_source(path, "knn_topk", FULLSCAN_TOPK_ARGS)
+        return lambda args, k, grid: fullscan_topk(fn, *args, k)
+    real = _build.load()
+    lib = real._replace(lib=_SwappedLib(real.lib, "knn_topk", load_baseline_source(
+        path, "knn_topk", _build.SIGNATURES["knn_topk"])))
+
+    def run(args, k, grid):
+        with mock.patch.object(_build, "load", lambda: lib):
+            return kc.knn_topk(*args, k, grid=grid)
+    return run
+
+
+def b3_bytes(points: int, nq: int, k: int) -> int:
+    """B3's bytes: each tree point read once (12 B), each query read once
+    (12 B), each result written once (8 B per entry)."""
+    return 12 * points + 12 * nq + 8 * k * nq
+
+
+def window_work(cl, plan, st):
+    """The window of B3's queries at these inputs, counted on the card:
+    (pairs, points). Pairs: per query, the points of its 27-cell cube that
+    lie in its piece's runs; points: the tree points those pairs touch.
+    Assumes at least 3 cells per axis (no cell of a cube repeats)."""
+    dims = [int(v) for v in cl.dims]
+    if min(dims) < 3:
+        fail(f"window_work: dims {dims} below 3")
+    off = cl.offsets.long()
+    counts = off[1:] - off[:-1]
+    touched = torch.zeros(cl.ncells, dtype=torch.bool, device=off.device)
+    pairs = 0
+    rc = plan.run_cell.long()
+    rn = plan.run_ncell.long()
+    d = torch.arange(-1, 2, device=off.device)
+    cube = torch.stack(torch.meshgrid(d, d, d, indexing="ij"), -1).reshape(
+        -1, 3)
+    for r0 in range(0, st.qcs.shape[0], 1 << 17):
+        qc = st.qcs[r0:r0 + (1 << 17)]
+        c = qc[:, None, :] + cube[None]                    # [q, 27, 3]
+        ok = torch.ones(c.shape[:2], dtype=torch.bool, device=c.device)
+        for a in range(3):
+            if cl.periodic:
+                c[..., a] %= dims[a]
+            else:
+                ok &= (c[..., a] >= 0) & (c[..., a] < dims[a])
+                c[..., a] = c[..., a].clamp(0, dims[a] - 1)
+        ids = (c[..., 0] * dims[1] + c[..., 1]) * dims[2] + c[..., 2]
+        pid = st.pid[r0:r0 + (1 << 17)].long()
+        lo, n = rc[pid][:, None, :], rn[pid][:, None, :]    # [q, 1, R]
+        inrun = ((ids[..., None] >= lo) & (ids[..., None] < lo + n)).any(-1)
+        use = ok & inrun
+        pairs += int(torch.where(use, counts[ids], 0).sum())
+        touched[ids[use]] = True
+    return pairs, int(counts[touched].sum())
+
+
+class _SwappedLib:
+    """The kernel library with the entry point ``name`` replaced by ``fn``."""
+
+    def __init__(self, lib, name, fn):
+        self._lib, self._name, self._fn = lib, name, fn
 
     def __getattr__(self, name):
-        return getattr(self._lib, name)
+        return self._fn if name == self._name else getattr(self._lib, name)
 
 
 def lognormal_workload(n: int, grid: int, gen: torch.Generator):
@@ -198,7 +302,9 @@ def lognormal_workload(n: int, grid: int, gen: torch.Generator):
 # (BASELINE.md:10); its CPU binary answered 165,959 q/s (BASELINE.md:26)
 KNN_N, KNN_Q, KNN_K = 10_000_000, 500_000, 16
 REF_QPS = 165_959
-KNN_PIECES = 1056  # 8 blocks per SM x 132 SMs, as phase 3 times B2
+# B3 at other k on the same inputs: knn_cdf's default reach (k <= 8), one
+# neighbour, and the kernel's largest k
+KNN_SWEEP_K = (1, 8, 128)
 # the k > 128 route: a 1e6-point periodic tree, 2e4 random queries; cells
 # of 64 points (leafsize 1024), so the r = 1 bound certifies the 200th
 # neighbour and the kernel's answers reach the result (at the default 8 per
@@ -318,10 +424,14 @@ def check_sample(name: str, cl, queries, d, idx, k: int) -> int:
     return int(tied.sum())
 
 
-def knn_phases(dev: torch.device, gen: torch.Generator) -> list:
+def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
+               base_topk=None) -> list:
     """Phases kNN-1..4: B3 and B4 against their plain versions at the main
     path's shapes, the main path at the reference harness's size, and the
-    k > 128 route. Returns the kernels' entries for the result line."""
+    k > 128 route. ``smi`` (the card's name and power limit) is printed
+    beside every time; ``base_topk`` (from :func:`baseline_topk`) is timed
+    against B3 in turns at every k. Returns the kernels' entries for the
+    result line."""
     import numpy as np
 
     from nbodyhpc_tpu_torch.kdtree import KDTree
@@ -345,35 +455,100 @@ def knn_phases(dev: torch.device, gen: torch.Generator) -> list:
         f"{KNN_Q} queries in {npieces} pieces "
         f"({KNN_Q / npieces:.1f} queries each), candidates per query "
         f"mean {float(cand.mean()):.1f} max {int(cand.max())}")
-    m = min(KNN_PIECES, npieces)
-    nrows = int(st.piece_q0[m - 1] + st.piece_qn[m - 1])
-    args3 = (st.qs.T.contiguous(), st.piece_q0[:m], st.piece_qn[:m],
-             st.piece_pid[:m], plan.run_start, plan.run_len, cl.xyz, plan.box)
-    dk, sk = kc.knn_topk(*args3, KNN_K, nrows=nrows)
-    dr, sr = kc.knn_topk_reference(*args3, KNN_K + 1, nrows=nrows)
-    torch.cuda.synchronize()
+    q_all = st.qs.T.contiguous()
+    grid = kd.cell_grid(cl, plan)
+    args3 = (q_all, st.piece_q0, st.piece_qn, st.piece_pid, plan.run_start,
+             plan.run_len, cl.xyz, plan.box)
+    win_pairs, win_points = window_work(cl, plan, st)
+    # the full-column scan: every FULLZ (or ZSEG) candidate of every query
+    full_pairs = float(cand.sum())
+
+    def b3_at(k: int, reps: int):
+        """B3 at ``k`` over all pieces: held bit-equal to its plain version
+        (and to the baseline), then timed in turns with the baseline. Returns
+        (d2, slot, plain d2 [Q, k + 1], {"new": [ms], "base": [ms]}, pairs
+        scored, cells scanned)."""
+        counts = torch.zeros(2, dtype=torch.int64, device=dev)
+        dk, sk = kc.knn_topk(*args3, k, grid=grid, counts=counts)
+        dr, sr = kc.knn_topk_reference(*args3, k + 1)
+        torch.cuda.synchronize()
+        if not (bits_equal(dk, dr[:, :k]) and torch.equal(sk, sr[:, :k])):
+            bad = int(((dk.view(torch.int32) != dr[:, :k].view(torch.int32))
+                       | (sk != sr[:, :k])).any(1).sum())
+            fail(f"kNN-1: B3 at k={k} is not bit-equal to its plain version "
+                 f"on {bad} of {KNN_Q} rows")
+        del sr
+        if base_topk is not None:
+            bd, bs = base_topk(args3, k, grid)
+            torch.cuda.synchronize()
+            if not (bits_equal(bd, dk) and torch.equal(bs, sk)):
+                fail(f"kNN-1: the baseline B3 differs from the kernel at k={k}")
+            del bd, bs
+        turns = {"new": [], "base": []}
+        for who in (("base", "new", "new", "base") if base_topk is not None
+                    else ("new", "new")):
+            if who == "new":
+                turns[who].append(cuda_ms(
+                    lambda: kc.knn_topk(*args3, k, grid=grid), reps))
+            else:
+                turns[who].append(cuda_ms(
+                    lambda: base_topk(args3, k, grid), reps))
+        scored, scanned = (int(v) for v in counts.tolist())
+        if scored <= 0:
+            fail(f"kNN-1: B3 at k={k} counted no pairs scored")
+        return dk, sk, dr, turns, scored, scanned
+
+    def b3_report(k, turns, scored, scanned, pairs_needed):
+        """Log B3's times at ``k`` in turns and its bound, from the pairs the
+        answer needs; returns (kernel ms, bound ms, bound by)."""
+        ms = sum(turns["new"]) / len(turns["new"])
+        bound_ms, bound_by = bound(b3_bytes(win_points, KNN_Q, k),
+                                   B3_INSTR * pairs_needed)
+        line = (f"kNN-1: B3 at k={k} ({smi}): kernel {ms:.3f} ms (turns "
+                f"{turns['new']})")
+        if turns["base"]:
+            b_ms = sum(turns["base"]) / len(turns["base"])
+            line += (f", baseline source {b_ms:.3f} ms (turns "
+                     f"{turns['base']}), {b_ms / ms:.2f}x the kernel's time")
+        log(line + f"; scored {scored} pairs ({scored / KNN_Q:.1f} per "
+            f"query) in {scanned} cells ({scanned / KNN_Q:.2f} per query); "
+            f"bound {bound_ms:.4f} ms ({bound_by}: {pairs_needed} pairs x "
+            f"{B3_INSTR} instructions, {b3_bytes(win_points, KNN_Q, k)} "
+            f"bytes), share {bound_ms / ms:.4f}")
+        return ms, bound_ms, bound_by
+
+    dk, sk, dr, turns, scored, scanned = b3_at(KNN_K, 10)
     edge = int(((dr[:, -2] == dr[:, -1]) & torch.isfinite(dr[:, -1])).sum())
     if edge:
         fail(f"kNN-1: {edge} rows tie at the k-th candidate distance")
-    if not (bits_equal(dk, dr[:, :KNN_K])
-            and torch.equal(sk, sr[:, :KNN_K])):
-        fail("kNN-1: B3 is not bit-equal to its plain version")
     b3_err = max_err(dk, dr[:, :KNN_K])
-    # derived: every (query, candidate) pair of the prefix, each query and
-    # its k results once, each candidate point once
-    pc = plan.points[st.piece_pid[:m].long()].double()
-    b3_pairs = float((st.piece_qn[:m].double() * pc).sum())
-    b3_bound_ms, b3_bound_by = bound(
-        12 * nrows + 8 * KNN_K * nrows + 12 * min(float(pc.sum()), KNN_N),
-        B3_INSTR * b3_pairs)
-    b3_ms = cuda_ms(lambda: kc.knn_topk(*args3, KNN_K, nrows=nrows), 10)
-    b3_plain_ms = cuda_ms(
-        lambda: kc.knn_topk_reference(*args3, KNN_K, nrows=nrows), 1)
-    log(f"kNN-1: B3 bit-equal to plain on the first {m} pieces ({nrows} "
-        f"queries, k={KNN_K}): kernel {b3_ms:.3f} ms, plain "
-        f"{b3_plain_ms:.3f} ms; {b3_pairs:.0f} candidate pairs x {B3_INSTR} "
-        f"instructions: bound {b3_bound_ms:.3f} ms ({b3_bound_by})")
-    del args3, dk, sk, dr, sr
+    b3_plain_ms = cuda_ms(lambda: kc.knn_topk_reference(*args3, KNN_K), 1)
+    log(f"kNN-1: B3 bit-equal to plain on all {npieces} pieces ({KNN_Q} "
+        f"queries, k={KNN_K}), no tie at the k-th distance"
+        + (", bit-equal to the baseline source" if base_topk else "")
+        + f"; {smi}: plain {b3_plain_ms:.3f} ms")
+    # the bound from what these inputs need: the window's pairs, or fewer
+    # where the kernel proved the answer with fewer; each tree point the
+    # window touches, the queries and the results once
+    need = min(win_pairs, scored)
+    b3_ms, b3_bound_ms, b3_bound_by = b3_report(KNN_K, turns, scored,
+                                                scanned, need)
+    win_ms, win_by = bound(b3_bytes(win_points, KNN_Q, KNN_K),
+                           B3_INSTR * win_pairs)
+    full_ms, full_by = bound(b3_bytes(KNN_N, KNN_Q, KNN_K),
+                             B3_INSTR * full_pairs)
+    log(f"kNN-1: B3 work at k={KNN_K}: the window holds {win_pairs} pairs "
+        f"({win_pairs / KNN_Q:.1f} per query; bound from them alone "
+        f"{win_ms:.4f} ms, {win_by}), the kernel scored {scored} "
+        f"({scored / win_pairs:.3f}x the window's); the full-column scan: "
+        f"{full_pairs:.0f} pairs, bound {full_ms:.3f} ms ({full_by})")
+    del dk, sk, dr
+    # at other k: the pairs the kernel scored (at k = 128 the window alone
+    # does not hold the answer)
+    for k in KNN_SWEEP_K:
+        _, _, _, turns_k, scored_k, scanned_k = b3_at(k, 5)
+        b3_report(k, turns_k, scored_k, scanned_k, scored_k)
+    del args3
 
     # ---- kNN-2: B4 vs plain, k > 128 ---------------------------------------
     n2, q2, k2 = KNN2_N, KNN2_Q, KNN2_K
@@ -427,7 +602,7 @@ def knn_phases(dev: torch.device, gen: torch.Generator) -> list:
     sample = torch.randperm(KNN_Q, generator=gen, device=dev)[:4096]
     tied = check_sample("kNN-3", cl, queries[sample], d[sample], idx[sample],
                         KNN_K)
-    log(f"kNN-3: query_device {KNN_Q} self-queries k={KNN_K}: "
+    log(f"kNN-3: query_device {KNN_Q} self-queries k={KNN_K} ({smi}): "
         f"{qd_ms:.3f} ms ({KNN_Q / qd_ms * 1e3:.0f} q/s, "
         f"{KNN_Q / qd_ms * 1e3 / REF_QPS:.2f}x the reference binary's "
         f"{REF_QPS} q/s); B3 launches {b3_launches}; {ladder_q} queries "
@@ -464,9 +639,11 @@ def knn_phases(dev: torch.device, gen: torch.Generator) -> list:
     bad, t_bad = synced(lambda: torch.nonzero(~cv).squeeze(1))
     _, t_lad = synced(lambda: knn.ladder_knn(cl, st.qs[bad], KNN_K))
     _, rebuild_ms = synced(lambda: KDTree(pts, boxsize=1.0))
-    log(f"kNN-3: stage split (ms): build again {rebuild_ms:.3f}, stage sort "
-        f"{t_sort:.3f}, B3 {t_b3:.3f}, epilogue {t_epi:.3f}, unconverged "
-        f"{t_bad:.3f}, ladder ({bad.numel()} queries) {t_lad:.3f}")
+    log(f"kNN-3: stage split (ms, {smi}): build again {rebuild_ms:.3f}, "
+        f"plan {plan_ms:.3f} (once per tree), stage sort {t_sort:.3f}, B3 "
+        f"{t_b3:.3f}, epilogue {t_epi:.3f}, unconverged {t_bad:.3f}, ladder "
+        f"({bad.numel()} queries) {t_lad:.3f}; query_device {qd_ms:.3f} ms "
+        f"= {KNN_Q / qd_ms * 1e3:.0f} q/s")
     busy_ms, wall_ms, top = device_busy_ms(
         lambda: tree.query_device(queries, k=KNN_K))
     idle = 1 - busy_ms / wall_ms
@@ -528,6 +705,10 @@ def main() -> int:
     ap.add_argument("--baseline-deposit", metavar="PATH",
                     help="another splat_deposit.cu to time against the "
                          "package's kernel, in turns")
+    ap.add_argument("--baseline-topk", metavar="PATH",
+                    help="another knn_topk.cu, full-scan or with the "
+                         "package's entry point (its knn_common.h beside "
+                         "it), to time against B3, in turns")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -664,8 +845,10 @@ def main() -> int:
     base_lib = None
     if opts.baseline_deposit:
         real = _build.load()
-        base_lib = real._replace(lib=_SwappedDeposit(
-            real.lib, load_deposit_source(opts.baseline_deposit)))
+        base_lib = real._replace(lib=_SwappedLib(
+            real.lib, "splat_deposit", load_baseline_source(
+                opts.baseline_deposit, "splat_deposit",
+                _build.SIGNATURES["splat_deposit"])))
 
     def kernel_of(who: str):
         """Context in which ``sc.deposit`` launches the package's kernel
@@ -819,7 +1002,9 @@ def main() -> int:
          "bound_ms": dep_bound_ms, "bound_by": dep_bound_by,
          "library_ms": None},
     ]
-    kernels += knn_phases(dev, gen)
+    base_topk = (baseline_topk(opts.baseline_topk) if opts.baseline_topk
+                 else None)
+    kernels += knn_phases(dev, gen, smi, base_topk)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

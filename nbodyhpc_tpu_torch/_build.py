@@ -46,11 +46,13 @@ SIGNATURES = {
     "splat_align": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I, _P),
     # attrs stride nchunks ch F S vol gx gy gz stream
     "splat_deposit": (_P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _P),
-    # q qstride piece_q0 piece_qn piece_pid npieces run_start run_len nruns
-    # xyz xstride periodic L0 L1 L2 iL0 iL1 iL2 out_d2 out_slot k row_base
-    # stream
-    "knn_topk": (_P, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _I, _F, _F,
-                 _F, _F, _F, _F, _P, _P, _I, _I, _P),
+    # q qstride piece_q0 piece_qn piece_pid npieces run_start run_len
+    # run_cell run_ncell nruns offsets xyz xstride periodic L0 L1 L2 iL0 iL1
+    # iL2 C0 C1 C2 lo0 lo1 lo2 h0 h1 h2 ih0 ih1 ih2 m0 m1 m2 out_d2 out_slot
+    # k row_base nrows counts stream
+    "knn_topk": (_P, _LL, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _LL,
+                 _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _F, _F, _F, _F, _F,
+                 _F, _F, _F, _F, _F, _F, _F, _P, _P, _I, _I, _I, _P, _P),
     # ... out ncand row_base stream
     "knn_dist": (_P, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _I, _F, _F,
                  _F, _F, _F, _F, _P, _I, _I, _P),

@@ -4,8 +4,9 @@ Reference behaviour (kdtree/src/cpp/main.cpp:51-175): generate
 Philox-seeded random points (or load a raw float3 file), build the tree,
 self-query the first ``num-queries`` points (distance to self must be 0),
 and report build time, query time, queries/s, and the fraction of points
-visited per query. ``--device cuda`` builds and queries on the GPU (the
-candidate kernels take batches of 8192 queries or more), ``cpu`` on the CPU.
+visited per query. It builds and queries on the card (the candidate kernels
+take batches of 8192 queries or more) unless ``--device cpu`` asks for the
+CPU.
 
 Usage: ``python -m nbodyhpc_tpu_torch.cli.kdtree_bench --num-points 1e7
 [--device cuda]``
@@ -37,7 +38,7 @@ def main(argv=None):
                     help="raw float32 x,y,z triples (reference main.cpp:103-114)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--device", type=str, default=None,
-                    help="torch device (default: cuda when present, else cpu)")
+                    help="torch device (default: the card; cpu for the CPU)")
     args = ap.parse_args(argv)
 
     from ..kdtree import KDTree

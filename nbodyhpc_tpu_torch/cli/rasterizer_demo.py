@@ -3,8 +3,8 @@
 Reference behavior (rasterization/src/cpp/main.cpp:53-84): render a single
 analytic sphere and check mass conservation (total deposited weight ~= 1),
 the lit-voxel fraction and the central voxel value, optionally dumping a PNG
-slice. ``--device cuda`` renders through the tile engine's kernels, ``cpu``
-through the oracle.
+slice. It renders on the card through the tile engine's kernels unless
+``--device cpu`` asks for the CPU (the oracle).
 
 Usage: ``python -m nbodyhpc_tpu_torch.cli.rasterizer_demo [--grid 128]
 [--device cuda]``
@@ -59,7 +59,7 @@ def main(argv=None):
     ap.add_argument("--subsample", type=int, default=4)
     ap.add_argument("--png", type=str, default=None)
     ap.add_argument("--device", type=str, default=None,
-                    help="torch device (default: cuda when present, else cpu)")
+                    help="torch device (default: the card; cpu for the CPU)")
     args = ap.parse_args(argv)
     ok = render_single_sphere(args.grid, args.subsample, args.png,
                               args.device)

@@ -10,7 +10,8 @@ Internally a sorted cell-list engine (:mod:`..ops.knn`): on a CUDA device,
 batches of 8192 queries or more go through the hand-written candidate
 kernels (:mod:`..ops.knn_device`, :mod:`..ops.knn_cuda`) and the exact
 ladder finishes what they cannot certify; smaller batches and CPU trees take
-the ladder. ``engine="kernel"`` forces the kernel route, which on the CPU
+the ladder. A tree built from numpy lives on the card unless ``device``
+names another. ``engine="kernel"`` forces the kernel route, which on the CPU
 runs the kernels' plain versions.
 """
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import default_device
 from ..core.cells import build_cell_list
 from ..ops import knn as _knn
 from ..ops.knn import QueryStatistics
@@ -47,8 +49,8 @@ class KDTree:
         (reference: pybind.cpp:42-46 raises on out-of-box points).
     device : torch device, optional
         Where the tree lives and queries run. Default: a tensor's own
-        device; otherwise the first CUDA device when one is present, else
-        the CPU.
+        device; otherwise the card (``"cuda"``), and without one it
+        raises: a CPU run passes ``device="cpu"``.
     """
 
     def __init__(self, points, leafsize: int = 128, max_threads: int = -1,
@@ -56,14 +58,11 @@ class KDTree:
         if len(kwargs) > 0:
             warnings.warn("Unrecognized keyword arguments: {}".format(kwargs))
         occupancy = max(2.0, float(leafsize) / 16.0)
-        if device is None:
-            if isinstance(points, torch.Tensor):
-                device = points.device
-            else:
-                device = "cuda" if torch.cuda.is_available() else "cpu"
+        if device is None and isinstance(points, torch.Tensor):
+            device = points.device
         self._tree = build_cell_list(points, boxsize=boxsize,
                                      occupancy=occupancy,
-                                     device=torch.device(device))
+                                     device=default_device(device))
 
     # --- properties, reference pybind.cpp:212-215 ---
     @property

@@ -9,7 +9,8 @@ piece is the ``c``-th point of that concatenation.
 - **B3** :func:`knn_topk` (kernel ``csrc/knn_topk.cu``, replaces
   ``knn_pallas.py::_knn_topk_kernel``): per query the exact ``k`` smallest
   squared distances, ascending, ties to the lowest candidate, and their tree
-  slots. ``k <= 128``.
+  slots, proven from the query's z-window outwards with a cell bound (the
+  kernel also takes the plan's cells, :class:`CellGrid`). ``k <= 128``.
 - **B4** :func:`knn_dist` (kernel ``csrc/knn_dist.cu``, replaces
   ``knn_pallas.py::_knn_kernel``): per query the squared distance to every
   candidate, as one row of a ``[rows, ncand]`` block with ``inf`` past the
@@ -31,6 +32,8 @@ kernel launches only.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -38,7 +41,7 @@ from .. import _build
 from .knn import select_k
 from .metrics import sq_dist
 
-QB = 64          # queries per piece: threads of a B3 block (knn_common.h kQB)
+QB = 64          # queries per piece (knn_common.h kQB)
 MAX_RUNS = 36    # logical runs per plan row (knn_common.h kMaxRuns)
 TOPK_MAX = 128   # largest k of the fused kernel; larger k take B4
 #: elements per plain-version candidate block (bounds its transients)
@@ -249,16 +252,55 @@ def knn_topk_reference(q, piece_q0, piece_qn, piece_pid, run_start, run_len,
     return out_d, out_s
 
 
+class CellGrid(NamedTuple):
+    """The cells behind a plan's runs, which B3 needs to visit each query's
+    window first and skip cells by their distance: ``run_cell`` and
+    ``run_ncell`` int32 [rows, R] (each run's first cell id and cell count;
+    a run is a contiguous range of ids ``(x * Cy + y) * Cz + z``),
+    ``offsets`` int32 [ncells + 1] (cell ``c`` holds slots ``offsets[c]``
+    .. ``offsets[c + 1]``), and per axis ``dims``, ``lo``, the cell size
+    ``h`` and ``inv_h`` (float32 values, as the tree bins its points)."""
+
+    run_cell: torch.Tensor
+    run_ncell: torch.Tensor
+    offsets: torch.Tensor
+    dims: tuple
+    lo: tuple
+    h: tuple
+    inv_h: tuple
+
+
+#: B3's cell bound subtracts this share of each axis's coordinate scale
+#: (``|lo| + dims * h``): ~128 float32 ulps, far above the rounding of the
+#: cell assignment and of the displacement, far below a cell
+BOUND_MARGIN = 2.0 ** -16
+
+
+def _grid_args(grid: CellGrid):
+    """(C0, C1, C2, lo, h, 1/h, margin per axis) for the C entry point."""
+    dims = [int(v) for v in grid.dims]
+    lo = [float(v) for v in grid.lo]
+    h = [float(v) for v in grid.h]
+    marg = [BOUND_MARGIN * (abs(a) + c * b) for a, c, b in zip(lo, dims, h)]
+    return (*dims, *lo, *h, *(float(v) for v in grid.inv_h), *marg)
+
+
 def knn_topk(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
-             k: int, row_base: int = 0, nrows: int | None = None):
+             k: int, row_base: int = 0, nrows: int | None = None, *,
+             grid: CellGrid | None, counts=None):
     """Exact ``k`` nearest candidates of every query of the pieces: (d2
     [nrows, k] float32 ascending, tree slot [nrows, k] int32), ties to the
     lowest candidate position (see :func:`knn_topk_reference`).
 
     Kernel ``csrc/knn_topk.cu`` for CUDA tensors; replaces
-    ``nbodyhpc_tpu/ops/knn_pallas.py::_knn_topk_kernel``. Bound by
-    arithmetic; one block per piece, one thread per query with its top-k in
-    registers, candidates staged through shared memory. ``k <= 128``.
+    ``nbodyhpc_tpu/ops/knn_pallas.py::_knn_topk_kernel``. One thread per
+    query row; each scores the cells of its z-window first, then scans a
+    further cell only where a lower bound on its distances does not exceed
+    the k-th best, so it does the work the answer needs rather than every
+    candidate. ``grid`` is always given: the kernel needs the plan's cells
+    (:func:`.knn_device.cell_grid`); the plain version on CPU tensors does
+    not read them, so it takes None there. ``counts``, an int64 CUDA tensor
+    of 2, receives the pairs scored and the cells scanned. ``k <= 128``.
     """
     _require(1 <= k <= TOPK_MAX, f"knn_topk: k must be in [1, {TOPK_MAX}]")
     if not _check_inputs("knn_topk", q, piece_q0, piece_qn, piece_pid,
@@ -266,6 +308,20 @@ def knn_topk(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
         return knn_topk_reference(q, piece_q0, piece_qn, piece_pid,
                                   run_start, run_len, xyz, box, k, row_base,
                                   nrows)
+    _require(grid is not None, "knn_topk: the kernel needs the plan's cells "
+                               "(grid=CellGrid(...))")
+    for tname, t in (("run_cell", grid.run_cell),
+                     ("run_ncell", grid.run_ncell),
+                     ("offsets", grid.offsets)):
+        _require(t.device == q.device and t.dtype == torch.int32
+                 and t.is_contiguous(),
+                 f"knn_topk: {tname} must be contiguous int32 on {q.device}")
+    _require(grid.run_cell.shape == grid.run_ncell.shape == run_start.shape,
+             "knn_topk: run_cell/run_ncell must be shaped like run_start")
+    if counts is not None:
+        _require(counts.device == q.device and counts.dtype == torch.int64
+                 and counts.numel() == 2 and counts.is_contiguous(),
+                 "knn_topk: counts must be a contiguous int64 tensor of 2")
     nrows = q.shape[1] - row_base if nrows is None else nrows
     dev = q.device
     out_d = torch.empty((nrows, k), dtype=torch.float32, device=dev)
@@ -276,9 +332,12 @@ def knn_topk(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
     err = _build.load().lib.knn_topk(
         q.data_ptr(), q.shape[1], piece_q0.data_ptr(), piece_qn.data_ptr(),
         piece_pid.data_ptr(), npieces, run_start.data_ptr(),
-        run_len.data_ptr(), run_start.shape[1], xyz.data_ptr(), xyz.shape[1],
-        *_box_args(box), out_d.data_ptr(), out_s.data_ptr(), k, row_base,
-        _stream(q),
+        run_len.data_ptr(), grid.run_cell.data_ptr(),
+        grid.run_ncell.data_ptr(), run_start.shape[1],
+        grid.offsets.data_ptr(), xyz.data_ptr(), xyz.shape[1],
+        *_box_args(box), *_grid_args(grid), out_d.data_ptr(),
+        out_s.data_ptr(), k, row_base, nrows,
+        None if counts is None else counts.data_ptr(), _stream(q),
     )
     knn_topk.launches += 1
     _build.check(err, "knn_topk launch")

@@ -69,7 +69,8 @@ class KernelPlan(NamedTuple):
     piece's logical runs in scan order; ``cells`` and ``points`` int32
     [pieces] its scanned cells and candidates (the statistics of the queries
     it certifies); ``box`` the periodic lengths ``dims * h`` (zeros when not
-    periodic)."""
+    periodic); ``run_cell``/``run_ncell`` int32 [pieces, 6 or 36] the first
+    cell id and the cell count of each run (zeros for an unused run)."""
 
     fullz: bool
     zseg: int
@@ -79,6 +80,8 @@ class KernelPlan(NamedTuple):
     cells: torch.Tensor
     points: torch.Tensor
     box: tuple
+    run_cell: torch.Tensor
+    run_ncell: torch.Tensor
 
 
 def piece_geometry(tree: CellList):
@@ -95,17 +98,19 @@ def piece_geometry(tree: CellList):
 
 
 def _run(offsets, use, lo_cell, ncell):
-    """(start, len) of the cell range [lo_cell, lo_cell + ncell) where
-    ``use``, else (0, 0)."""
+    """(start, len, first cell, cells) of the cell range [lo_cell, lo_cell +
+    ncell) where ``use``, else zeros."""
     s = offsets[torch.where(use, lo_cell, 0)]
     e = offsets[torch.where(use, lo_cell + ncell, 0)]
-    return torch.where(use, s, 0), torch.where(use, e - s, 0)
+    return (torch.where(use, s, 0), torch.where(use, e - s, 0),
+            torch.where(use, lo_cell, 0), torch.where(use, ncell, 0))
 
 
 def _build_static_tables(tree: CellList, zseg: int, nseg: int, npair: int):
-    """ZSEG logical runs: (starts, lens, cells) with starts/lens int32
-    [NSP, 36] in the JAX kernel's slot order and cells [NSP] the cells the
-    runs cover. Row p = pair m, segment s (p = m * nseg + s): the 3x3
+    """ZSEG logical runs: (starts, lens, cells, run_cell, run_ncell) with
+    starts/lens int32 [NSP, 36] in the JAX kernel's slot order, cells [NSP]
+    the cells the runs cover, and each run's first cell and cell count.
+    Row p = pair m, segment s (p = m * nseg + s): the 3x3
     neighbourhoods of columns (2m, 2m + 1) over the z-interval
     [s*zseg - 1, min((s+1)*zseg, Cz)]; B skips the columns A covers, so
     every tree point lands in at most one run."""
@@ -129,7 +134,7 @@ def _build_static_tables(tree: CellList, zseg: int, nseg: int, npair: int):
         ddx = torch.remainder(ddx + Cx // 2, Cx) - Cx // 2
         ddy = torch.remainder(ddy + Cy // 2, Cy) - Cy // 2
 
-    starts, lens, cells = [], [], []
+    starts, lens, c0s, ncs = [], [], [], []
     for csel, cxy in ((0, axy), (1, bxy)):
         for nb in range(9):
             dx, dy = nb // 3 - 1, nb % 3 - 1
@@ -160,28 +165,30 @@ def _build_static_tables(tree: CellList, zseg: int, nseg: int, npair: int):
             for zs, zl in seg:
                 zl = torch.clamp_min(zl, 0)
                 use = inb & (zl > 0)
-                st, ln = _run(offsets, use, base + zs, zl)
-                starts.append(st)
-                lens.append(ln)
-                cells.append(torch.where(use, zl, 0))
+                for acc, v in zip((starts, lens, c0s, ncs),
+                                  _run(offsets, use, base + zs, zl)):
+                    acc.append(v)
+    ncell = torch.stack(ncs, 1).to(torch.int32)
     return (torch.stack(starts, 1).to(torch.int32),
             torch.stack(lens, 1).to(torch.int32),
-            torch.stack(cells, 1).sum(1).to(torch.int32))
+            ncell.sum(1, dtype=torch.int32),
+            torch.stack(c0s, 1).to(torch.int32), ncell)
 
 
 def _fullz_logical_runs(tree: CellList):
-    """FULLZ logical runs: (starts, lens, cells, max slice) with starts/lens
-    int32 [ncol, 6] -- per neighbour x (-1, 0, 1) the y-window [y-1, y+1]
-    over full z as one slice, or two where it wraps (Cy >= 3, so the two
-    never alias) -- cells [ncol] the cells covered, and the longest
-    per-neighbour-x slice (which sizes the JAX plan's slot width)."""
+    """FULLZ logical runs: (starts, lens, cells, max slice, run_cell,
+    run_ncell) with starts/lens int32 [ncol, 6] -- per neighbour x (-1, 0,
+    1) the y-window [y-1, y+1] over full z as one slice, or two where it
+    wraps (Cy >= 3, so the two never alias) -- cells [ncol] the cells
+    covered, the longest per-neighbour-x slice (which sizes the JAX plan's
+    slot width), and each run's first cell and cell count."""
     Cx, Cy, Cz = (int(v) for v in tree.dims)
     periodic = tree.periodic
     offsets = tree.offsets.long()
     dev = offsets.device
     c = torch.arange(Cx * Cy, device=dev)
     x, y = c // Cy, c % Cy
-    starts, lens, cells = [], [], []
+    starts, lens, c0s, ncs = [], [], [], []
     for dx in (-1, 0, 1):
         xd = x + dx
         if periodic:
@@ -201,15 +208,15 @@ def _fullz_logical_runs(tree: CellList):
                     (torch.zeros_like(ya), torch.zeros_like(ya)))
         for ys, yw in segs:
             use = okx & (yw > 0)
-            st, ln = _run(offsets, use, (xd * Cy + ys) * Cz, yw * Cz)
-            starts.append(st)
-            lens.append(ln)
-            cells.append(torch.where(use, yw * Cz, 0))
+            run = _run(offsets, use, (xd * Cy + ys) * Cz, yw * Cz)
+            for acc, v in zip((starts, lens, c0s, ncs), run):
+                acc.append(v)
     starts = torch.stack(starts, 1).to(torch.int32)
     lens = torch.stack(lens, 1).to(torch.int32)
+    ncell = torch.stack(ncs, 1).to(torch.int32)
     slice_len = lens[:, 0::2] + lens[:, 1::2]
-    return (starts, lens, torch.stack(cells, 1).sum(1).to(torch.int32),
-            int(slice_len.max()))
+    return (starts, lens, ncell.sum(1, dtype=torch.int32),
+            int(slice_len.max()), torch.stack(c0s, 1).to(torch.int32), ncell)
 
 
 def _fullz_overflow_fraction(lens, maxsl: int) -> float:
@@ -233,15 +240,16 @@ def tree_plan(tree: CellList) -> KernelPlan | None:
     h = np.asarray(tree.cell_size, np.float64)
     box = (tuple(float(v) for v in dims * h) if tree.periodic
            else (0.0, 0.0, 0.0))
-    starts, lens, cells, maxsl = _fullz_logical_runs(tree)
+    starts, lens, cells, maxsl, c0, nc = _fullz_logical_runs(tree)
     if _fullz_overflow_fraction(lens, maxsl) <= 0.01:
         plan = KernelPlan(True, int(tree.dims[2]), 1, starts, lens, cells,
-                          lens.sum(1, dtype=torch.int32), box)
+                          lens.sum(1, dtype=torch.int32), box, c0, nc)
     else:
         zseg, nseg, npair, _ = piece_geometry(tree)
-        starts, lens, cells = _build_static_tables(tree, zseg, nseg, npair)
+        starts, lens, cells, c0, nc = _build_static_tables(tree, zseg, nseg,
+                                                           npair)
         plan = KernelPlan(False, zseg, nseg, starts, lens, cells,
-                          lens.sum(1, dtype=torch.int32), box)
+                          lens.sum(1, dtype=torch.int32), box, c0, nc)
     tree.kernel_plan = plan
     return plan
 
@@ -315,6 +323,15 @@ def _dist_chunks(st: Staged, tot_piece):
     return out
 
 
+def cell_grid(tree: CellList, plan: KernelPlan) -> knn_cuda.CellGrid:
+    """The cells behind the plan's runs, as B3 takes them."""
+    return knn_cuda.CellGrid(plan.run_cell, plan.run_ncell, tree.offsets,
+                             tuple(int(v) for v in tree.dims),
+                             tuple(float(v) for v in tree.lo),
+                             tuple(float(v) for v in tree.cell_size),
+                             tuple(float(v) for v in tree.inv_cell_size))
+
+
 def candidate_topk(tree: CellList, plan: KernelPlan, st: Staged, k: int):
     """(d2 [Q, k], slot [Q, k]) of every sorted query over its piece's
     candidates: B3 for k <= 128; above, B4 blocks chunked by
@@ -323,7 +340,7 @@ def candidate_topk(tree: CellList, plan: KernelPlan, st: Staged, k: int):
     args = (st.piece_q0, st.piece_qn, st.piece_pid, plan.run_start,
             plan.run_len, tree.xyz, plan.box)
     if k <= knn_cuda.TOPK_MAX:
-        return knn_cuda.knn_topk(q, *args, k)
+        return knn_cuda.knn_topk(q, *args, k, grid=cell_grid(tree, plan))
     Q = q.shape[1]
     d2 = torch.empty((Q, k), device=q.device)
     slot = torch.empty((Q, k), dtype=torch.int32, device=q.device)

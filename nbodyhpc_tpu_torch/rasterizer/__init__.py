@@ -26,6 +26,7 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from .. import default_device
 from ..ops import ghosts as _ghosts
 from ..ops import splat as _splat
 
@@ -75,7 +76,8 @@ class Container:
     """Runtime context: the analog of the reference's ``VulkanContainer``.
 
     ``device`` is the torch device every render of this container runs on
-    (default: the first CUDA device when one is present, else the CPU).
+    (default: the card, ``"cuda"``; without one it raises, and a CPU run
+    passes ``device="cpu"``).
     ``enable_validation_layers`` is the analog of
     ``VK_LAYER_KHRONOS_validation`` (vulkan_support.cpp:132-148): renders of
     this container check that their inputs and their output are finite and
@@ -84,9 +86,7 @@ class Container:
 
     def __init__(self, enable_validation_layers: bool = False, device=None):
         self.validation = bool(enable_validation_layers)
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = default_device(device)
 
     def check_finite(self, name: str, t: torch.Tensor) -> None:
         """The validation layer: raise on non-finite values in ``t``."""
@@ -99,7 +99,8 @@ class Container:
 
 @functools.lru_cache(maxsize=None)
 def get_default_container() -> Container:
-    """Default runtime container (cached), reference __init__.py:42-52."""
+    """Default runtime container (cached), reference __init__.py:42-52: on
+    the card, so without one it raises (see :class:`Container`)."""
     return Container(enable_validation_layers=False)
 
 

@@ -19,7 +19,7 @@ def knn_cdf(points, k=(1, 2, 4, 8), n_queries: int = 100_000, radii=None,
     """kNN-CDFs: P(distance to k-th neighbour <= r) from random query points.
 
     Returns (radii (R,), cdf (len(k), R)). ``device`` places the tree when
-    ``tree`` is not given.
+    ``tree`` is not given (default: the card; a CPU run passes "cpu").
     """
     ks = tuple(int(v) for v in (k if np.ndim(k) else (k,)))
     kmax = max(ks)

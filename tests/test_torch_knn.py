@@ -363,7 +363,7 @@ def test_api_reshape_kwargs_and_invalid_inputs():
         TKDTree(torch.from_numpy(points) * 10.0, boxsize=1.0)
 
 
-def test_api_k_larger_than_n_properties_and_workers():
+def test_api_k_larger_than_n_properties_and_workers(monkeypatch):
     pts = _points(5, 21)
     tree = TKDTree(pts, device="cpu")
     dist, idx = tree.query(pts[:3], k=8, workers=4)
@@ -373,12 +373,34 @@ def test_api_k_larger_than_n_properties_and_workers():
     assert_bit_equal(dist, jd)
     np.testing.assert_array_equal(idx, ji)
     p2 = _points(300, 33, box=2.0)
-    t2 = TKDTree(p2, boxsize=2.0)
+    t2 = TKDTree(p2, boxsize=2.0, device="cpu")
     assert (t2.n, t2.size, t2.periodic, t2.boxsize) == (300, 300, True, 2.0)
-    assert t2.device == CPU  # numpy in, no card: the CPU
+    assert t2.device == CPU
+    # numpy in and no device: the card, so without one it raises
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TKDTree(p2, boxsize=2.0)
     t3 = TKDTree(torch.from_numpy(p2), boxsize=(2.0, 2.0, 3.0))
-    assert t3.boxsize == (2.0, 2.0, 3.0) and t3.device == CPU
-    assert TKDTree(p2).boxsize is None
+    assert t3.boxsize == (2.0, 2.0, 3.0) and t3.device == CPU  # its own
+    assert TKDTree(p2, device="cpu").boxsize is None
+
+
+def test_no_card_no_default_tree(monkeypatch):
+    """Without a card, every entry point that builds a tree from numpy with
+    no device raises, naming device="cpu": the tree, the kNN-CDF and the
+    bench CLI. A tensor keeps its own device."""
+    from nbodyhpc_tpu_torch.cli.kdtree_bench import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pts = _points(400, 23)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        TKDTree(pts)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tknn_cdf(pts, k=(1,), n_queries=100, boxsize=1.0)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        main(["--num-points", "400", "--num-queries", "50", "-k", "2"])
+    assert TKDTree(torch.from_numpy(pts)).device == CPU
+    assert TKDTree(pts, device="cpu").device == CPU
 
 
 def test_self_query_and_scipy_periodic():

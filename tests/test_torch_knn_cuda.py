@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_knn_window as window
 from nbodyhpc_tpu_torch.kdtree import KDTree
 from nbodyhpc_tpu_torch.ops import knn_cuda as kc
 from nbodyhpc_tpu_torch.ops import knn_device as kd
@@ -50,15 +51,15 @@ def _staged(device, n, nq, periodic, dense=False, seed=3):
     st = kd._stage_sort(tree, plan, q)
     args = (st.qs.T.contiguous(), st.piece_q0, st.piece_qn, st.piece_pid,
             plan.run_start, plan.run_len, tree.xyz, plan.box)
-    return tree, plan, st, args
+    return tree, plan, st, args, kd.cell_grid(tree, plan)
 
 
 @pytest.mark.parametrize("periodic", [False, True])
 @pytest.mark.parametrize("k", [1, 16, 128])
 def test_topk_kernel_bit_equal_to_plain(cuda, periodic, k):
-    _, _, _, args = _staged(cuda, 200_000, 20_000, periodic)
+    _, _, _, args, grid = _staged(cuda, 200_000, 20_000, periodic)
     before = kc.knn_topk.launches
-    d2, slot = kc.knn_topk(*args, k)
+    d2, slot = kc.knn_topk(*args, k, grid=grid)
     assert kc.knn_topk.launches == before + 1
     rd, rs = kc.knn_topk_reference(*args, k)
     torch.cuda.synchronize()
@@ -69,7 +70,7 @@ def test_topk_kernel_bit_equal_to_plain(cuda, periodic, k):
 
 @pytest.mark.parametrize("periodic", [False, True])
 def test_dist_kernel_bit_equal_to_plain(cuda, periodic):
-    _, plan, st, args = _staged(cuda, 200_000, 20_000, periodic)
+    _, plan, st, args, _ = _staged(cuda, 200_000, 20_000, periodic)
     ncand = int(plan.points[st.piece_pid.long()].max())
     before = kc.knn_dist.launches
     block = kc.knn_dist(*args, ncand)
@@ -84,9 +85,9 @@ def test_dist_kernel_bit_equal_to_plain(cuda, periodic):
 
 
 def test_kernels_on_a_zseg_plan(cuda):
-    _, plan, st, args = _staged(cuda, 20_000, 2_000, True, dense=True)
+    _, plan, st, args, grid = _staged(cuda, 20_000, 2_000, True, dense=True)
     assert plan.run_start.shape[1] == 36
-    d2, slot = kc.knn_topk(*args, 16)
+    d2, slot = kc.knn_topk(*args, 16, grid=grid)
     rd, rs = kc.knn_topk_reference(*args, 16)
     assert _bit_equal(d2, rd) and torch.equal(slot, rs)
     ncand = int(plan.points[st.piece_pid.long()].max())
@@ -95,15 +96,44 @@ def test_kernels_on_a_zseg_plan(cuda):
 
 
 def test_kernel_wrappers_raise_and_never_fall_back(cuda):
-    _, _, _, args = _staged(cuda, 20_000, 9_000, False)
+    _, _, _, args, grid = _staged(cuda, 20_000, 9_000, False)
     bad = list(args)
     bad[6] = args[6].double()  # xyz must be float32
     with pytest.raises(ValueError):
-        kc.knn_topk(*bad, 8)
+        kc.knn_topk(*bad, 8, grid=grid)
     with pytest.raises(ValueError):
         kc.knn_dist(*bad, 100)
     with pytest.raises(ValueError):
-        kc.knn_topk(*args, 129)
+        kc.knn_topk(*args, 129, grid=grid)
+    with pytest.raises(ValueError, match="cells"):
+        kc.knn_topk(*args, 8, grid=None)  # the kernel needs the plan's cells
+    with pytest.raises(ValueError):
+        kc.knn_topk(*args, 8, grid=grid._replace(offsets=grid.offsets.cpu()))
+
+
+@pytest.mark.parametrize("k", [1, 16, 128])
+@pytest.mark.parametrize("case", window.CASES,
+                         ids=["-".join(c) for c in window.CASES])
+def test_topk_kernel_follows_the_window_rule(cuda, case, k):
+    """B3 on the CPU tests' window cases (a lattice, ZSEG plans, an open box,
+    3 cells in x, a sparse tree): bit-equal to its plain version, and it
+    scans exactly the cells the CPU mirror of its rule scans."""
+    tree, plan, st = window._staged(*case, 100 + k)
+    want_d, want_s, scanned, held = window.mirror_topk(tree, plan, st, k)
+    args = (st.qs.T.contiguous(), st.piece_q0, st.piece_qn, st.piece_pid,
+            plan.run_start, plan.run_len, tree.xyz)
+    ref_d, ref_s = kc.knn_topk_reference(*args, plan.box, k)
+    assert _bit_equal(want_d, ref_d) and torch.equal(want_s, ref_s)
+    grid = kd.cell_grid(tree, plan)
+    grid = grid._replace(run_cell=grid.run_cell.to(cuda),
+                         run_ncell=grid.run_ncell.to(cuda),
+                         offsets=grid.offsets.to(cuda))
+    counts = torch.zeros(2, dtype=torch.int64, device=cuda)
+    d2, slot = kc.knn_topk(*(a.to(cuda) for a in args), plan.box, k,
+                           grid=grid, counts=counts)
+    torch.cuda.synchronize()
+    assert _bit_equal(d2.cpu(), ref_d) and torch.equal(slot.cpu(), ref_s)
+    assert int(counts[1]) == scanned <= held
 
 
 @pytest.mark.parametrize("periodic", [False, True])

@@ -34,16 +34,31 @@ def _run_slots(starts, lens):
     return [s for st, ln in zip(starts, lens) for s in range(st, st + ln)]
 
 
+def _assert_run_cells(tree, starts, lens, c0, nc, cells):
+    """Each run is the slots of its cell range [c0, c0 + nc); the ranges
+    sum to the plan's cell count."""
+    off = tree.offsets.long()
+    used = nc > 0
+    np.testing.assert_array_equal(
+        torch.where(used, off[c0.long()], 0).numpy(), starts.numpy())
+    np.testing.assert_array_equal(
+        torch.where(used, off[(c0 + nc).long()] - off[c0.long()], 0).numpy(),
+        lens.numpy())
+    np.testing.assert_array_equal(nc.sum(1).numpy(), cells.numpy())
+
+
 @pytest.mark.parametrize("periodic", [True, False])
 def test_fullz_runs_match_jax(periodic):
     jt = JKDTree(_points(4000, 1), leafsize=64,
                  boxsize=1.0 if periodic else None)
     dims = tuple(int(v) for v in jt._tree.dims)
     js, jl, jmax = jkd._fullz_logical_runs(jt._dev[2], dims, periodic)
-    ts, tl, cells, tmax = tkd._fullz_logical_runs(port_tree(jt))
+    tree = port_tree(jt)
+    ts, tl, cells, tmax, c0, nc = tkd._fullz_logical_runs(tree)
     np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
     assert tmax == int(jmax)
+    _assert_run_cells(tree, ts, tl, c0, nc, cells)
     Cz = dims[2]
     ncol_nb = (tl.numpy().reshape(-1, 3, 2) > 0).any(2).sum(1)
     assert (cells.numpy() <= 9 * Cz).all() and (cells.numpy() > 0).all()
@@ -62,8 +77,10 @@ def test_zseg_tables_match_jax(periodic):
     assert tkd.piece_geometry(tree) == (zseg, nseg, npair, nsp)
     prow, flagged = (np.asarray(a) for a in jkd.static_piece_tables(
         jt._tree, jt._dev))
-    starts, lens, cells = (a.numpy() for a in tkd._build_static_tables(
-        tree, zseg, nseg, npair))
+    starts, lens, cells, c0, nc = tkd._build_static_tables(tree, zseg, nseg,
+                                                           npair)
+    _assert_run_cells(tree, starts, lens, c0, nc, cells)
+    starts, lens, cells = starts.numpy(), lens.numpy(), cells.numpy()
     NR = jkp.NRUNS
     assert starts.shape == (nsp, NR)
     for p in range(nsp):
@@ -102,7 +119,8 @@ def test_stage_sort_matches_jax():
             zseg, nseg = int(tree.dims[2]), 1
         else:
             zseg, nseg, _, _ = tkd.piece_geometry(tree)
-        plan = tkd.KernelPlan(fullz, zseg, nseg, *([None] * 4), (0.0,) * 3)
+        plan = tkd.KernelPlan(fullz, zseg, nseg, *([None] * 4), (0.0,) * 3,
+                              None, None)
         q = _points(2048, 4) * np.float32(1.5) - np.float32(0.25)
         qs, qcs, orig, dpid, sip, pmeta, npieces = jkd._stage_sort(
             jnp.asarray(q), jnp.asarray(tree.lo), jnp.asarray(tree.cell_size),
@@ -190,7 +208,7 @@ def test_topk_plain_matches_pallas_fullz(periodic):
             torch.tensor([10, 6], dtype=torch.int32),
             torch.tensor([0, 1], dtype=torch.int32), rs, rl,
             torch.from_numpy(xyz), box)
-    d2, slot = tkc.knn_topk(*args, k)
+    d2, slot = tkc.knn_topk(*args, k, grid=None)  # the plain version's runs
     assert_bit_equal(d2.numpy(), dk)
     np.testing.assert_array_equal(slot.numpy(), want_slot)
     assert slot[0, 0] == 3 and slot[0, 1] == 131 + 7 and d2[0, 1] == 0
@@ -256,10 +274,13 @@ def test_topk_kernel_wrapper_refuses_bad_inputs():
     runs = torch.zeros((1, 6), dtype=torch.int32)
     with pytest.raises(ValueError):
         tkc.knn_topk(q, one, one, one, runs, runs, torch.zeros((4, 8)),
-                     (0.0,) * 3, 129)
+                     (0.0,) * 3, 129, grid=None)
     with pytest.raises(ValueError):
         tkc.knn_topk(q, one, one, one, runs, runs,
                      torch.zeros((4, 8), dtype=torch.float64).to("meta"),
+                     (0.0,) * 3, 4, grid=None)
+    with pytest.raises(TypeError):  # the plan's cells are never implied
+        tkc.knn_topk(q, one, one, one, runs, runs, torch.zeros((4, 8)),
                      (0.0,) * 3, 4)
 
 

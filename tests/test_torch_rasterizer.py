@@ -2,8 +2,10 @@
 
 The API cases of ``tests/test_splat.py`` run through both packages
 (parametrized on ``api``), then the port's fields are held against the JAX
-package's on the same seeded inputs, through the oracle (the CPU default)
+package's on the same seeded inputs, through the oracle (the CPU's engine)
 and through the tile engine (``engine="cuda"``, plain versions on the CPU).
+The port's entry points default to the card, so its cases here install a
+CPU default container or name ``device="cpu"``.
 """
 import math
 import re
@@ -26,11 +28,24 @@ RTOL, ATOL = 1e-6, 1e-7
 REPO = Path(__file__).resolve().parents[1]
 
 
+@pytest.fixture
+def cpu_default(monkeypatch):
+    """The port's default container on the CPU for one test: its entry
+    points run on the card unless asked otherwise."""
+    cpu = tras.Container(device="cpu")
+    tras._get_point_renderer_impl.cache_clear()
+    monkeypatch.setattr(tras, "get_default_container", lambda: cpu)
+    yield cpu
+    tras._get_point_renderer_impl.cache_clear()
+
+
 @pytest.fixture(params=["jax", "torch"])
 def api(request):
     if request.param == "jax":
-        return types.SimpleNamespace(ras=jras, ghosts=jghosts)
-    return types.SimpleNamespace(ras=tras, ghosts=tghosts)
+        return types.SimpleNamespace(ras=jras, ghosts=jghosts, cpu={})
+    request.getfixturevalue("cpu_default")
+    return types.SimpleNamespace(ras=tras, ghosts=tghosts,
+                                 cpu={"device": "cpu"})
 
 
 def _np(a):
@@ -174,7 +189,7 @@ def test_input_validation(api):
 
 
 def test_validation_layer(api):
-    c = api.ras.Container(enable_validation_layers=True)
+    c = api.ras.Container(enable_validation_layers=True, **api.cpu)
     pr = api.ras.PointRenderer(c, 8, 8)
     pos = np.array([[0.5, 0.5, 0.25], [0.2, np.nan, 0.1]], np.float32)
     w = np.ones(2, np.float32)
@@ -197,13 +212,42 @@ def test_renderer_cache(api):
 def test_validation_layer_checks_output():
     """A finite input can still render a non-finite field (an overflowing
     weight): the port's validation layer checks the output too."""
-    pr = tras.PointRenderer(tras.Container(enable_validation_layers=True),
-                            8, 8)
+    pr = tras.PointRenderer(tras.Container(enable_validation_layers=True,
+                                           device="cpu"), 8, 8)
     pos = np.array([[0.5, 0.5, 0.5], [0.5, 0.5, 0.5]], np.float32)
     w = np.full(2, 3e38, np.float32)
     r = np.full(2, 0.01, np.float32)
     with pytest.raises(ValueError, match="rendered field"):
         pr.render_points_volume(pos, w, r, 8, 8.0)
+
+
+def test_no_card_no_default_container(monkeypatch):
+    """Without a card, the default container and a Container() naming no
+    device raise, naming device="cpu"; they never quietly take the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tras.get_default_container.cache_clear()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tras.Container()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tras.Container(enable_validation_layers=True)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tras.get_default_container()
+    assert tras.Container(device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("render", ["render_points_volume", "render_points"])
+def test_no_card_module_renders_raise(monkeypatch, render):
+    """The module-level renders go through the default container: without a
+    card they raise rather than return a CPU result."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tras.get_default_container.cache_clear()
+    tras._get_point_renderer_impl.cache_clear()
+    pos = np.array([[0.5, 0.5, 0.5]], np.float32)
+    one = np.ones(1, np.float32)
+    fn = getattr(tras, render)
+    grid = 8 if render == "render_points" else (8, 8, 8)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        fn(pos, one, one * 0.1, 8.0, grid)
 
 
 def test_container_device_and_engine_choice():
@@ -225,7 +269,7 @@ def _workload(n, seed, ppu, rpx_hi):
 
 @pytest.mark.parametrize("periodic,rpx_hi", [(False, 3.9), (True, 3.9),
                                              (True, 9.0)])
-def test_volume_matches_jax(periodic, rpx_hi):
+def test_volume_matches_jax(periodic, rpx_hi, cpu_default):
     ppu = 24.0
     pos, w, r = _workload(60, 41, ppu, rpx_hi)
     want = jras.render_points_volume(pos, w, r, ppu, 24, periodic=periodic)
