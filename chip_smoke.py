@@ -10,6 +10,7 @@ failure exits non-zero before the result line. Needs one CUDA device and
 ``nvcc`` (sm_90a); run from the repository root:
 
     python3 chip_smoke.py [--baseline-deposit PATH] [--baseline-topk PATH]
+                          [--baseline-dist PATH]
 
 ``--baseline-deposit`` builds another source of the deposit kernel (the
 same C entry point, for example an earlier commit's
@@ -20,6 +21,10 @@ pieces of the harness at every k that kNN-1 runs, with a ``knn_topk.cu``
 of either design: the full-scan one (the C entry point without the cell
 grid, as of the commit before B3's redesign) or one with the package's own
 C entry point. Its ``knn_common.h`` must lie beside it.
+``--baseline-dist`` takes another ``knn_dist.cu`` (the C entry point
+``knn_dist``, for example the one-block-per-piece kernel of the commit before
+B4's redesign, its ``knn_common.h`` beside it) and times its distance block
+against the package's block sink in turns, in kNN-2.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
@@ -232,6 +237,22 @@ def baseline_topk(path: str):
     return run
 
 
+def baseline_dist(path: str):
+    """``fn(args) -> block`` running the ``knn_dist`` of another
+    ``knn_dist.cu`` through ``knn_cuda.knn_dist``."""
+    from nbodyhpc_tpu_torch import _build
+    from nbodyhpc_tpu_torch.ops import knn_cuda as kc
+
+    real = _build.load()
+    lib = real._replace(lib=_SwappedLib(real.lib, "knn_dist", load_baseline_source(
+        path, "knn_dist", _build.SIGNATURES["knn_dist"])))
+
+    def run(args):
+        with mock.patch.object(_build, "load", lambda: lib):
+            return kc.knn_dist(*args)
+    return run
+
+
 def b3_bytes(points: int, nq: int, k: int) -> int:
     """B3's bytes: each tree point read once (12 B), each query read once
     (12 B), each result written once (8 B per entry)."""
@@ -239,17 +260,18 @@ def b3_bytes(points: int, nq: int, k: int) -> int:
 
 
 def window_work(cl, plan, st):
-    """The window of B3's queries at these inputs, counted on the card:
-    (pairs, points). Pairs: per query, the points of its 27-cell cube that
-    lie in its piece's runs; points: the tree points those pairs touch.
-    Assumes at least 3 cells per axis (no cell of a cube repeats)."""
+    """The window of the staged queries at these inputs, counted on the
+    card: (pairs [Q] int64, points). Pairs: per sorted query, the points of
+    its 27-cell cube that lie in its piece's runs; points: the tree points
+    those pairs touch. Assumes at least 3 cells per axis (no cell of a cube
+    repeats)."""
     dims = [int(v) for v in cl.dims]
     if min(dims) < 3:
         fail(f"window_work: dims {dims} below 3")
     off = cl.offsets.long()
     counts = off[1:] - off[:-1]
     touched = torch.zeros(cl.ncells, dtype=torch.bool, device=off.device)
-    pairs = 0
+    pairs = []
     rc = plan.run_cell.long()
     rn = plan.run_ncell.long()
     d = torch.arange(-1, 2, device=off.device)
@@ -270,9 +292,9 @@ def window_work(cl, plan, st):
         lo, n = rc[pid][:, None, :], rn[pid][:, None, :]    # [q, 1, R]
         inrun = ((ids[..., None] >= lo) & (ids[..., None] < lo + n)).any(-1)
         use = ok & inrun
-        pairs += int(torch.where(use, counts[ids], 0).sum())
+        pairs.append(torch.where(use, counts[ids], 0).sum(1))
         touched[ids[use]] = True
-    return pairs, int(counts[touched].sum())
+    return torch.cat(pairs), int(counts[touched].sum())
 
 
 class _SwappedLib:
@@ -311,6 +333,11 @@ KNN_SWEEP_K = (1, 8, 128)
 # cell every query would finish on the ladder)
 KNN2_N, KNN2_Q, KNN2_K = 1_000_000, 20_000, 200
 KNN2_LEAFSIZE = 1024
+# B4's selection sink at its smallest k on the path and at its capacity
+KNN2_SWEEP_K = (129, 256)
+# a k above that capacity, which takes B4's distance blocks, on the first
+# queries of the same batch
+KNN2_BLOCK_K, KNN2_BLOCK_Q = 300, 10_000
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -425,13 +452,14 @@ def check_sample(name: str, cl, queries, d, idx, k: int) -> int:
 
 
 def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
-               base_topk=None) -> list:
-    """Phases kNN-1..4: B3 and B4 against their plain versions at the main
-    path's shapes, the main path at the reference harness's size, and the
-    k > 128 route. ``smi`` (the card's name and power limit) is printed
-    beside every time; ``base_topk`` (from :func:`baseline_topk`) is timed
-    against B3 in turns at every k. Returns the kernels' entries for the
-    result line."""
+               base_topk=None, base_dist=None) -> list:
+    """Phases kNN-1..4: B3 and B4's two sinks against their plain versions
+    at the main path's shapes, the main path at the reference harness's
+    size, and the k > 128 routes. ``smi`` (the card's name and power limit)
+    is printed beside every time; ``base_topk`` (from :func:`baseline_topk`)
+    is timed against B3 in turns at every k, ``base_dist`` (from
+    :func:`baseline_dist`) against B4's block sink. Returns the kernels'
+    entries for the result line."""
     import numpy as np
 
     from nbodyhpc_tpu_torch.kdtree import KDTree
@@ -459,7 +487,9 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
     grid = kd.cell_grid(cl, plan)
     args3 = (q_all, st.piece_q0, st.piece_qn, st.piece_pid, plan.run_start,
              plan.run_len, cl.xyz, plan.box)
-    win_pairs, win_points = window_work(cl, plan, st)
+    win_q, win_points = window_work(cl, plan, st)
+    win_pairs = int(win_q.sum())
+    del win_q
     # the full-column scan: every FULLZ (or ZSEG) candidate of every query
     full_pairs = float(cand.sum())
 
@@ -550,7 +580,7 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
         b3_report(k, turns_k, scored_k, scanned_k, scored_k)
     del args3
 
-    # ---- kNN-2: B4 vs plain, k > 128 ---------------------------------------
+    # ---- kNN-2: B4's two sinks vs plain, k > 128 ---------------------------
     n2, q2, k2 = KNN2_N, KNN2_Q, KNN2_K
     gen.manual_seed(SEED + 11)
     pts2 = torch.rand((n2, 3), generator=gen, device=dev)
@@ -559,37 +589,135 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
     cl2 = tree2._tree
     plan2 = kd.tree_plan(cl2)
     st2 = kd._stage_sort(cl2, plan2, queries2)
-    ncand = int(plan2.points[st2.piece_pid.long()].max())
-    args4 = (st2.qs.T.contiguous(), st2.piece_q0, st2.piece_qn, st2.piece_pid,
-             plan2.run_start, plan2.run_len, cl2.xyz, plan2.box, ncand)
+    argsq = kd._kernel_args(cl2, plan2, st2)
+    pc4 = plan2.points[st2.piece_pid.long()].double()
+    b4_pairs = float((st2.piece_qn.double() * pc4).sum())
+    read_bytes = 12 * q2 + 12 * min(float(pc4.sum()), n2)
+    harness = (f"{n2} points periodic, plan "
+               f"{'FULLZ' if plan2.fullz else 'ZSEG'}, {q2} queries in "
+               f"{st2.piece_q0.numel()} pieces, {b4_pairs:.0f} pairs")
+
+    # the block sink, rows padded as the engine pads them
+    ncand = -(-int(pc4.max()) // kd.DIST_ROW_ALIGN) * kd.DIST_ROW_ALIGN
+    args4 = (*argsq, ncand)
     bk = kc.knn_dist(*args4)
     br = kc.knn_dist_reference(*args4)
     torch.cuda.synchronize()
     if not bits_equal(bk, br):
-        fail("kNN-2: B4 is not bit-equal to its plain version")
-    b4_err = max_err(bk, br)
+        fail("kNN-2: B4's block sink is not bit-equal to its plain version")
+    own_ms = None
+    if base_dist is not None:
+        if not bits_equal(base_dist(args4), bk):
+            fail("kNN-2: the baseline knn_dist differs from the block sink")
+        # the baseline at the unpadded row length, as the route ran it
+        # before rows were padded
+        own = (*argsq, int(pc4.max()))
+        own_ms = cuda_ms(lambda: base_dist(own), 10)
     # derived: the block written once, each query and candidate read once
-    pc4 = plan2.points[st2.piece_pid.long()].double()
-    b4_pairs = float((st2.piece_qn.double() * pc4).sum())
-    b4_bound_ms, b4_bound_by = bound(
-        4 * bk.numel() + 12 * q2 + 12 * min(float(pc4.sum()), n2),
-        B4_INSTR * b4_pairs)
-    sel, _ = kc.select_block(br, k2 + 1, st2.pid, plan2.run_start,
-                             plan2.run_len)
-    if int(((sel[:, -2] == sel[:, -1]) & torch.isfinite(sel[:, -1])).sum()):
+    blk_bound_ms, blk_bound_by = bound(4 * bk.numel() + read_bytes,
+                                     B4_INSTR * b4_pairs)
+    sel_d, sel_s = kc.select_block(br, k2 + 1, st2.pid, plan2.run_start,
+                                   plan2.run_len)
+    if int(((sel_d[:, -2] == sel_d[:, -1])
+            & torch.isfinite(sel_d[:, -1])).sum()):
         fail("kNN-2: rows tie at the k-th candidate distance")
-    b4_ms = cuda_ms(lambda: kc.knn_dist(*args4), 10)
-    b4_plain_ms = cuda_ms(lambda: kc.knn_dist_reference(*args4), 1)
-    log(f"kNN-2: B4 bit-equal to plain: {n2} points periodic, plan "
-        f"{'FULLZ' if plan2.fullz else 'ZSEG'}, {q2} queries "
-        f"in {st2.piece_q0.numel()} pieces, block {tuple(bk.shape)}: kernel "
-        f"{b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms, bound "
-        f"{b4_bound_ms:.3f} ms ({b4_bound_by}; {b4_pairs:.0f} pairs)")
-    del args4, bk, br, sel
+    turns = {"new": [], "base": []}
+    for who in (("base", "new", "new", "base") if base_dist is not None
+                else ("new", "new")):
+        turns[who].append(cuda_ms(
+            (lambda: kc.knn_dist(*args4)) if who == "new"
+            else (lambda: base_dist(args4)), 10))
+    blk_ms = sum(turns["new"]) / len(turns["new"])
+    blk_plain_ms = cuda_ms(lambda: kc.knn_dist_reference(*args4), 1)
+    line = (f"kNN-2: B4 block sink bit-equal to plain ({smi}): {harness}, "
+            f"block {tuple(bk.shape)}: kernel {blk_ms:.3f} ms (turns "
+            f"{turns['new']})")
+    if turns["base"]:
+        base_ms = sum(turns["base"]) / len(turns["base"])
+        line += (f", baseline source {base_ms:.3f} ms (turns "
+                 f"{turns['base']}), {base_ms / blk_ms:.2f}x the kernel's "
+                 f"time, bit-equal; the baseline on unpadded rows of "
+                 f"{int(pc4.max())}: {own_ms:.3f} ms")
+    log(line + f", plain {blk_plain_ms:.3f} ms, bound {blk_bound_ms:.3f} ms "
+        f"({blk_bound_by}), share {blk_bound_ms / blk_ms:.4f}")
+    # for the record: one library call that selects the same values from
+    # the block, without the tie rule and without making the block
+    topk_ms = cuda_ms(lambda: torch.topk(bk, k2, dim=1, largest=False), 3)
+    sort_ms = cuda_ms(lambda: kc.select_block(
+        bk, k2, st2.pid, plan2.run_start, plan2.run_len), 3)
+    log(f"kNN-2: on that block ({smi}): torch.topk(block, {k2}, "
+        f"largest=False) {topk_ms:.3f} ms; select_block (stable sort and "
+        f"decode) {sort_ms:.3f} ms")
+    del bk, br
+
+    # the selection sink, at the path's k, its smallest k and its capacity.
+    # Its bound counts the pairs the answer needs, as B3's does: a row whose
+    # k-th distance lies inside its 27-cell cube needs that window's pairs,
+    # any other row every candidate of its piece
+    win2, _ = window_work(cl2, plan2, st2)
+    face2, _ = knn.cube_bound(cl2, st2.qs, st2.qcs, 1, 3)
+    cand2 = plan2.points[st2.pid.long()].long()
+
+    def select_at(k: int, want_d, want_s):
+        """Hold ``knn_select`` at ``k`` bit-equal to (want_d, want_s) and
+        time it: (max abs err, ms, bound ms, bound by)."""
+        dk, sk = kc.knn_select(*argsq, k)
+        torch.cuda.synchronize()
+        if not (bits_equal(dk, want_d) and torch.equal(sk, want_s)):
+            bad = int(((dk.view(torch.int32) != want_d.view(torch.int32))
+                       | (sk != want_s)).any(1).sum())
+            fail(f"kNN-2: B4's selection sink at k={k} is not bit-equal to "
+                 f"its plain version on {bad} of {q2} rows")
+        ms = cuda_ms(lambda: kc.knn_select(*argsq, k), 10)
+        inwin = want_d[:, k - 1] < face2 * face2
+        need = int(torch.where(inwin, win2, cand2).sum())
+        nbytes = read_bytes + 8 * k * q2
+        b_ms, b_by = bound(nbytes, B4_INSTR * need)
+        scan_ms, scan_by = bound(nbytes, B4_INSTR * b4_pairs)
+        log(f"kNN-2: B4 selection sink at k={k} bit-equal to plain ({smi}): "
+            f"kernel {ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}: {need} pairs "
+            f"x {B4_INSTR} instructions, {int(inwin.sum())} of {q2} rows "
+            f"answered by their window; {nbytes:.0f} bytes), share "
+            f"{b_ms / ms:.4f}; the full scan it runs: {b4_pairs:.0f} pairs, "
+            f"bound {scan_ms:.4f} ms ({scan_by}), {b4_pairs / need:.2f}x the "
+            f"pairs the answer needs")
+        return max_err(dk, want_d), ms, b_ms, b_by
+
+    rd, rs = kc.knn_select_reference(*argsq, k2)
+    if not (bits_equal(rd, sel_d[:, :k2]) and torch.equal(rs, sel_s[:, :k2])):
+        fail("kNN-2: knn_select_reference differs from the sorted block")
+    del sel_d, sel_s
+    sel_err, sel_ms, sel_bound_ms, sel_bound_by = select_at(k2, rd, rs)
+    sel_plain_ms = cuda_ms(lambda: kc.knn_select_reference(*argsq, k2), 1)
+    log(f"kNN-2: B4 selection sink's plain version at k={k2}: "
+        f"{sel_plain_ms:.3f} ms")
+    for k in KNN2_SWEEP_K:
+        if not kc.TOPK_MAX < k <= kc.SELECT_MAX:
+            fail(f"kNN-2: k={k} is not on the selection sink's path")
+        select_at(k, *kc.knn_select_reference(*argsq, k))
+    del win2, face2, cand2
+
+    # the two k > 128 routes on the same staged queries, in turns (wall ms,
+    # the device drained around each): one launch of the selection sink
+    # against distance blocks and a stable sort of each
+    routes = {"select": [], "block": []}
+    for who in ("block", "select", "select", "block"):
+        (dd, ss), ms = synced(
+            (lambda: kd.candidate_topk(cl2, plan2, st2, k2))
+            if who == "select" else (lambda: kd.block_topk(cl2, plan2, st2,
+                                                           k2)))
+        routes[who].append(ms)
+        if not (bits_equal(dd, rd) and torch.equal(ss, rs)):
+            fail(f"kNN-2: the {who} route differs from the plain version")
+    log(f"kNN-2: candidate stage at k={k2} in turns ({smi}, wall ms): "
+        f"selection sink {routes['select']}, blocks and stable sort "
+        f"{routes['block']}")
+    del args4, rd, rs, dd, ss
+    torch.cuda.empty_cache()
 
     # ---- kNN-3: the main path at full size ---------------------------------
     tree.query_device(queries, k=KNN_K)  # warm-up
-    kc.knn_topk.launches = kc.knn_dist.launches = 0
+    kc.knn_topk.launches = kc.knn_select.launches = kc.knn_dist.launches = 0
     (d, idx), qd_ms = synced(lambda: tree.query_device(queries, k=KNN_K))
     b3_launches = kc.knn_topk.launches
     ladder_q = kd.query_blocks_device.ladder_queries
@@ -656,31 +784,107 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
     del tree, cl, plan, st, pts, queries, d, idx, d2s, slot, cv
     torch.cuda.empty_cache()
 
-    # ---- kNN-4: the k > 128 route end to end -------------------------------
-    kc.knn_topk.launches = kc.knn_dist.launches = 0
+    # ---- kNN-4: the k > 128 routes end to end ------------------------------
+    def certified_sample(name, queries, d, idx, k, nsample):
+        """Hold ``nsample`` of the queries the kernel route certified (so
+        B4's answers, not the ladder's) to brute force. Returns (rows with
+        ties, rows held)."""
+        st = kd._stage_sort(cl2, plan2, queries)
+        d2c, slotc = kd.candidate_topk(cl2, plan2, st, k)
+        _, _, cv = kd._epilogue(cl2, plan2, d2c, slotc, st.qs, st.qcs)
+        cert = st.orig[cv]
+        ladder = kd.query_blocks_device.ladder_queries
+        if cert.numel() != queries.shape[0] - ladder:
+            fail(f"{name}: {cert.numel()} certified rows, "
+                 f"{queries.shape[0] - ladder} expected")
+        rows = cert[torch.randperm(cert.numel(), generator=gen,
+                                   device=dev)[:nsample]]
+        return (check_sample(name, cl2, queries[rows], d[rows], idx[rows], k),
+                rows.numel())
+
+    tree2.query_device(queries2, k=k2)  # warm-up
+    kc.knn_topk.launches = kc.knn_select.launches = kc.knn_dist.launches = 0
     (d4, i4), k4_ms = synced(lambda: tree2.query_device(queries2, k=k2))
-    b4_launches = kc.knn_dist.launches
+    sel_launches = kc.knn_select.launches
     ladder4 = kd.query_blocks_device.ladder_queries
-    if b4_launches == 0:
-        fail("kNN-4: B4 was not launched on the k > 128 route")
+    if sel_launches != 1 or kc.knn_dist.launches or kc.knn_topk.launches:
+        fail(f"kNN-4: k={k2} launched (knn_select, knn_dist, knn_topk) = "
+             f"({sel_launches}, {kc.knn_dist.launches}, "
+             f"{kc.knn_topk.launches}), expected (1, 0, 0)")
     if ladder4 >= q2 // 2:
         fail(f"kNN-4: {ladder4} of {q2} queries finished on the ladder; the "
              f"kernel route certified too few")
-    # the sample: queries the kernel route certified, so B4's answers (not
-    # the ladder's) are held to brute force
-    d2c, slotc = kd.candidate_topk(cl2, plan2, st2, k2)
-    _, _, cv2 = kd._epilogue(cl2, plan2, d2c, slotc, st2.qs, st2.qcs)
-    cert = st2.orig[cv2]
-    if cert.numel() != q2 - ladder4:
-        fail(f"kNN-4: {cert.numel()} certified rows, {q2 - ladder4} expected")
-    rows = cert[torch.randperm(cert.numel(), generator=gen,
-                               device=dev)[:1024]]
-    tied4 = check_sample("kNN-4", cl2, queries2[rows], d4[rows], i4[rows],
-                         k2)
+    tied4, held4 = certified_sample("kNN-4", queries2, d4, i4, k2, 1024)
     log(f"kNN-4: query_device {q2} queries k={k2} on {n2} points (cells of "
-        f"{n2 / cl2.ncells:.1f} points): {k4_ms:.3f} ms; B4 launches "
-        f"{b4_launches}; {ladder4} queries on the ladder; 1024 of the "
-        f"kernel-certified queries equal brute force ({tied4} rows with ties)")
+        f"{n2 / cl2.ncells:.1f} points) ({smi}): {k4_ms:.3f} ms; launches "
+        f"knn_select {sel_launches}, knn_dist 0; {ladder4} queries on the "
+        f"ladder; {held4} of the kernel-certified queries equal brute force "
+        f"({tied4} rows with ties)")
+    # stage split of that call, a sync around each stage
+    st4, t_sort = synced(lambda: kd._stage_sort(cl2, plan2, queries2))
+    (d2s, slot), t_cand = synced(lambda: kd.candidate_topk(cl2, plan2, st4,
+                                                            k2))
+    (_, _, cv), t_epi = synced(lambda: kd._epilogue(cl2, plan2, d2s, slot,
+                                                    st4.qs, st4.qcs))
+    bad, t_bad = synced(lambda: torch.nonzero(~cv).squeeze(1))
+    _, t_lad = synced(lambda: knn.ladder_knn(cl2, st4.qs[bad], k2))
+    log(f"kNN-4: stage split at k={k2} (ms, {smi}): stage sort {t_sort:.3f}, "
+        f"candidate stage (selection sink) {t_cand:.3f}, epilogue "
+        f"{t_epi:.3f}, unconverged {t_bad:.3f}, ladder ({bad.numel()} "
+        f"queries) {t_lad:.3f}; query_device {k4_ms:.3f} ms")
+    del d4, i4, st4, d2s, slot, cv
+
+    # above the selection sink's capacity: distance blocks and a stable sort
+    k5, q5 = KNN2_BLOCK_K, queries2[:KNN2_BLOCK_Q]
+    if k5 <= kc.SELECT_MAX:
+        fail(f"kNN-4: k={k5} does not exceed the selection sink's capacity")
+    tree2.query_device(q5, k=k5)  # warm-up
+    kc.knn_topk.launches = kc.knn_select.launches = kc.knn_dist.launches = 0
+    (d5, i5), k5_ms = synced(lambda: tree2.query_device(q5, k=k5))
+    b4_launches = kc.knn_dist.launches
+    ladder5 = kd.query_blocks_device.ladder_queries
+    if b4_launches == 0 or kc.knn_select.launches or kc.knn_topk.launches:
+        fail(f"kNN-4: k={k5} launched (knn_select, knn_dist, knn_topk) = "
+             f"({kc.knn_select.launches}, {b4_launches}, "
+             f"{kc.knn_topk.launches}), expected knn_dist alone")
+    if ladder5 >= q5.shape[0] // 2:
+        fail(f"kNN-4: {ladder5} of {q5.shape[0]} queries at k={k5} finished "
+             f"on the ladder; the kernel route certified too few")
+    tied5, held5 = certified_sample(f"kNN-4 (k={k5})", q5, d5, i5, k5, 512)
+    log(f"kNN-4: query_device {q5.shape[0]} queries k={k5} ({smi}): "
+        f"{k5_ms:.3f} ms; launches knn_dist {b4_launches}, knn_select 0; "
+        f"{ladder5} queries on the ladder; {held5} of the kernel-certified "
+        f"queries equal brute force ({tied5} rows with ties)")
+    # the block sink at the blocks that call launched: held against plain,
+    # timed and bounded there, so its entry describes the path's launches
+    st5 = kd._stage_sort(cl2, plan2, q5)
+    args5 = kd._kernel_args(cl2, plan2, st5)
+    tot5 = plan2.points[st5.piece_pid.long()]
+    blocks5 = [(args5[0], *(a[p0:p1] for a in args5[1:4]), *args5[4:], nc,
+                r0, nr) for p0, p1, r0, nr, nc in kd._dist_chunks(st5, tot5)]
+    if len(blocks5) != b4_launches:
+        fail(f"kNN-4: k={k5} launched knn_dist {b4_launches} times for "
+             f"{len(blocks5)} blocks")
+    b4_err = 0.0
+    for a in blocks5:
+        got, want = kc.knn_dist(*a), kc.knn_dist_reference(*a)
+        if not bits_equal(got, want):
+            fail(f"kNN-4: B4's block sink is not bit-equal to its plain "
+                 f"version on the k={k5} call's block of {tuple(got.shape)}")
+        b4_err = max(b4_err, max_err(got, want))
+    del got, want
+    b4_ms = cuda_ms(lambda: [kc.knn_dist(*a) for a in blocks5], 10)
+    b4_plain_ms = cuda_ms(
+        lambda: [kc.knn_dist_reference(*a) for a in blocks5], 1)
+    pairs5 = float((st5.piece_qn.double() * tot5.double()).sum())
+    bytes5 = (sum(4 * a[10] * a[8] for a in blocks5) + 12 * q5.shape[0]
+              + 12 * min(float(tot5.sum()), n2))
+    b4_bound_ms, b4_bound_by = bound(bytes5, B4_INSTR * pairs5)
+    log(f"kNN-4: B4 block sink at that call's blocks "
+        f"{[(a[10], a[8]) for a in blocks5]} bit-equal to plain ({smi}): "
+        f"kernel {b4_ms:.3f} ms, plain {b4_plain_ms:.3f} ms, bound "
+        f"{b4_bound_ms:.3f} ms ({b4_bound_by}: {bytes5:.0f} bytes; "
+        f"{pairs5:.0f} pairs), share {b4_bound_ms / b4_ms:.4f}")
 
     return [
         {"name": "knn_topk", "route": "cuda",
@@ -689,6 +893,14 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
          "launches": b3_launches, "max_abs_err": b3_err,
          "ms": b3_ms, "plain_ms": b3_plain_ms,
          "bound_ms": b3_bound_ms, "bound_by": b3_bound_by,
+         "library_ms": None},
+        {"name": "knn_select", "route": "cuda",
+         "source": "nbodyhpc_tpu_torch/csrc/knn_dist.cu",
+         "replaces": "nbodyhpc_tpu/ops/knn_pallas.py:185 and "
+                     "nbodyhpc_tpu/ops/knn_pallas.py:673",
+         "launches": sel_launches, "max_abs_err": sel_err,
+         "ms": sel_ms, "plain_ms": sel_plain_ms,
+         "bound_ms": sel_bound_ms, "bound_by": sel_bound_by,
          "library_ms": None},
         {"name": "knn_dist", "route": "cuda",
          "source": "nbodyhpc_tpu_torch/csrc/knn_dist.cu",
@@ -709,6 +921,9 @@ def main() -> int:
                     help="another knn_topk.cu, full-scan or with the "
                          "package's entry point (its knn_common.h beside "
                          "it), to time against B3, in turns")
+    ap.add_argument("--baseline-dist", metavar="PATH",
+                    help="another knn_dist.cu (its knn_common.h beside it) "
+                         "to time against B4's block sink, in turns")
     opts = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
@@ -1004,7 +1219,9 @@ def main() -> int:
     ]
     base_topk = (baseline_topk(opts.baseline_topk) if opts.baseline_topk
                  else None)
-    kernels += knn_phases(dev, gen, smi, base_topk)
+    base_dist = (baseline_dist(opts.baseline_dist) if opts.baseline_dist
+                 else None)
+    kernels += knn_phases(dev, gen, smi, base_topk, base_dist)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -56,6 +56,9 @@ SIGNATURES = {
     # ... out ncand row_base stream
     "knn_dist": (_P, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _I, _F, _F,
                  _F, _F, _F, _F, _P, _I, _I, _P),
+    # ... out_d2 out_slot k row_base stream
+    "knn_select": (_P, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _I, _F, _F,
+                   _F, _F, _F, _F, _P, _P, _I, _I, _P),
 }
 
 

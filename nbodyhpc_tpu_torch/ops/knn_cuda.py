@@ -11,13 +11,19 @@ piece is the ``c``-th point of that concatenation.
   squared distances, ascending, ties to the lowest candidate, and their tree
   slots, proven from the query's z-window outwards with a cell bound (the
   kernel also takes the plan's cells, :class:`CellGrid`). ``k <= 128``.
-- **B4** :func:`knn_dist` (kernel ``csrc/knn_dist.cu``, replaces
-  ``knn_pallas.py::_knn_kernel``): per query the squared distance to every
-  candidate, as one row of a ``[rows, ncand]`` block with ``inf`` past the
-  piece's candidates. :func:`select_block` then takes the ``k`` smallest
-  with a stable sort (the counterpart of ``_topk_blocks``; not
-  ``torch.topk``, which orders ties arbitrarily) and decodes candidate
-  positions to tree slots.
+- **B4** (kernel ``csrc/knn_dist.cu``, replaces
+  ``knn_pallas.py::_knn_kernel``): one tiled kernel that scores every
+  candidate of every query, with two sinks.
+
+  - :func:`knn_select`: the ``k`` smallest of each row, ascending, ties to
+    the lowest candidate, and their tree slots, selected in shared memory
+    (it also replaces ``_topk_blocks``, the selection that followed the TPU
+    kernel). ``k <= 256``; the engine takes it for ``128 < k <= 256``.
+  - :func:`knn_dist`: the squared distance to every candidate, as one row
+    of a ``[rows, ncand]`` block with ``inf`` past the piece's candidates.
+    :func:`select_block` then takes the ``k`` smallest with a stable sort
+    (not ``torch.topk``, which orders ties arbitrarily) and decodes
+    candidate positions to tree slots. The engine takes it for ``k > 256``.
 
 Shared inputs: ``q`` float32 [3, Q] (query rows, sorted so each piece's
 queries are consecutive), per piece ``piece_q0`` (first query row),
@@ -44,6 +50,12 @@ from .metrics import sq_dist
 QB = 64          # queries per piece (knn_common.h kQB)
 MAX_RUNS = 36    # logical runs per plan row (knn_common.h kMaxRuns)
 TOPK_MAX = 128   # largest k of the fused kernel; larger k take B4
+#: largest k of B4's selection sink (knn_dist.cu kSelectMax): a row's list in
+#: shared memory holds SELECT_LIST keys of 8 bytes, 16 rows a block; with the
+#: 24 KB of candidate tiles that is 88 KB, so two blocks fit an SM's 227 KB,
+#: and k up to half the list leaves the other half as buffer
+SELECT_LIST = 512
+SELECT_MAX = SELECT_LIST // 2
 #: elements per plain-version candidate block (bounds its transients)
 PLAIN_BLOCK_ELEMS = 1 << 24
 
@@ -182,9 +194,11 @@ def knn_dist(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
     float32 [nrows, ncand], inf past each piece's candidate count (see
     :func:`knn_dist_reference`; ``ncand`` must cover every piece).
 
-    Kernel ``csrc/knn_dist.cu`` for CUDA tensors; replaces
+    Kernel ``csrc/knn_dist.cu`` (its block sink) for CUDA tensors; replaces
     ``nbodyhpc_tpu/ops/knn_pallas.py::_knn_kernel``. Bound by the block's
-    stores; one block per piece, threads over candidates, stores coalesced.
+    stores: candidates are staged through shared memory in tiles, a warp
+    owns two query rows and writes 16 bytes per lane where ``ncand`` is a
+    multiple of 4 (a multiple of 32 starts every row on a 128-byte line).
     """
     if not _check_inputs("knn_dist", q, piece_q0, piece_qn, piece_pid,
                          run_start, run_len, xyz):
@@ -215,11 +229,64 @@ def select_block(d2, k: int, pid, run_start, run_len):
     """The ``k`` nearest of each row of a distance block: (d2 [rows, k]
     ascending, tree slot [rows, k] int32, -1 where no candidate), by a
     stable sort, so ties go to the lowest candidate position. ``pid`` is
-    each row's plan row. This selection lies outside the kernels, as
-    ``_topk_blocks`` lies outside the Pallas kernel."""
+    each row's plan row. This selection lies outside the kernel, as
+    ``_topk_blocks`` lies outside the Pallas kernel; :func:`knn_select`
+    is the same function inside it."""
     vals, pos = select_k(d2, k)
     slot = decode_slots(pos, pid.long(), run_start, run_len)
     return vals, torch.where(torch.isfinite(vals), slot, -1).to(torch.int32)
+
+
+def knn_select_reference(q, piece_q0, piece_qn, piece_pid, run_start,
+                         run_len, xyz, box, k: int, row_base: int = 0,
+                         nrows: int | None = None):
+    """Plain version of B4's selection sink: every candidate's distance, a
+    stable sort, the first ``k`` (no limit on ``k``). Returns (d2 [nrows, k]
+    float32, slot [nrows, k] int32; inf / -1 where a piece has fewer than
+    ``k`` candidates)."""
+    return knn_topk_reference(q, piece_q0, piece_qn, piece_pid, run_start,
+                              run_len, xyz, box, k, row_base, nrows)
+
+
+def knn_select(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
+               k: int, row_base: int = 0, nrows: int | None = None):
+    """The ``k`` nearest candidates of every query of the pieces, all
+    candidates scored: (d2 [nrows, k] float32 ascending, tree slot
+    [nrows, k] int32), ties to the lowest candidate position (see
+    :func:`knn_select_reference`). ``k <= SELECT_MAX``.
+
+    Kernel ``csrc/knn_dist.cu`` (its selection sink) for CUDA tensors;
+    replaces ``nbodyhpc_tpu/ops/knn_pallas.py::_knn_kernel`` and the
+    ``_topk_blocks`` pass over its block. Bound by its float32 instructions:
+    the distances are filtered against each row's k-th best and selected in
+    shared memory, so only the answer reaches device memory.
+    """
+    _require(1 <= k <= SELECT_MAX,
+             f"knn_select: k must be in [1, {SELECT_MAX}]")
+    if not _check_inputs("knn_select", q, piece_q0, piece_qn, piece_pid,
+                         run_start, run_len, xyz):
+        return knn_select_reference(q, piece_q0, piece_qn, piece_pid,
+                                    run_start, run_len, xyz, box, k,
+                                    row_base, nrows)
+    nrows = q.shape[1] - row_base if nrows is None else nrows
+    out_d = torch.empty((nrows, k), dtype=torch.float32, device=q.device)
+    out_s = torch.empty((nrows, k), dtype=torch.int32, device=q.device)
+    npieces = piece_q0.shape[0]
+    if npieces == 0 or nrows == 0:
+        return out_d, out_s
+    err = _build.load().lib.knn_select(
+        q.data_ptr(), q.shape[1], piece_q0.data_ptr(), piece_qn.data_ptr(),
+        piece_pid.data_ptr(), npieces, run_start.data_ptr(),
+        run_len.data_ptr(), run_start.shape[1], xyz.data_ptr(), xyz.shape[1],
+        *_box_args(box), out_d.data_ptr(), out_s.data_ptr(), k, row_base,
+        _stream(q),
+    )
+    knn_select.launches += 1
+    _build.check(err, "knn_select launch")
+    return out_d, out_s
+
+
+knn_select.launches = 0
 
 
 # ---------------------------------------------------------------------------

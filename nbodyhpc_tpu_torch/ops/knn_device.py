@@ -15,9 +15,10 @@ once, the candidate runs of every static *piece*:
   candidate budget of the JAX plan (dense trees).
 
 A batch then sorts its queries by static piece id, cuts each group into
-dynamic pieces of at most :data:`.knn_cuda.QB` queries, runs B3 (k <= 128)
-or B4 plus a stable-sort selection (k > 128) over every piece, and applies
-the r = 1 cube convergence bound. Queries the bound cannot certify finish on
+dynamic pieces of at most :data:`.knn_cuda.QB` queries, runs over every
+piece B3 (k <= 128), B4's selection sink (k <= 256) or B4's distance block
+plus a stable-sort selection (larger k), and applies the r = 1 cube
+convergence bound. Queries the bound cannot certify finish on
 the exact ladder (:mod:`.knn`).
 
 Kept from the JAX plan: which tree ranges each piece scans, which queries
@@ -59,8 +60,12 @@ ZSEG_BUDGET = 36 * 256
 #: takes ZSEG, exactly as the JAX plan decides
 FULLZ_RCAP_RUNGS = (512, 1024, 2048)
 FULLZ_NR = 9
-#: bytes of one B4 distance block (k > 128): pieces are chunked to fit
+#: bytes of one B4 distance block (k above B4's selection sink): pieces are
+#: chunked to fit
 DIST_BLOCK_BYTES = 1 << 30
+#: a block's rows are padded to this many float32 columns (inf), so every
+#: row starts on a 128-byte line
+DIST_ROW_ALIGN = 32
 
 
 class KernelPlan(NamedTuple):
@@ -307,18 +312,21 @@ def _epilogue(tree: CellList, plan: KernelPlan, d2, slot, qs, qcs):
 
 def _dist_chunks(st: Staged, tot_piece):
     """Contiguous piece ranges whose B4 block (rows x the range's largest
-    candidate count, float32) fits :data:`DIST_BLOCK_BYTES`."""
+    candidate count rounded up to :data:`DIST_ROW_ALIGN`, float32) fits
+    :data:`DIST_BLOCK_BYTES`: (first piece, end piece, first row, rows,
+    columns) each."""
     q0 = st.piece_q0.cpu().numpy().astype(np.int64)
     qn = st.piece_qn.cpu().numpy().astype(np.int64)
     tot = tot_piece.cpu().numpy().astype(np.int64)
-    rows_max = max(DIST_BLOCK_BYTES // (4 * max(int(tot.max()), 1)), 1)
+    tot = -(-np.maximum(tot, 1) // DIST_ROW_ALIGN) * DIST_ROW_ALIGN
+    rows_max = max(DIST_BLOCK_BYTES // (4 * int(tot.max())), 1)
     ends = q0 + qn
     out, p0 = [], 0
     while p0 < len(q0):
         p1 = int(np.searchsorted(ends, q0[p0] + rows_max, side="right"))
         p1 = max(p1, p0 + 1)
         out.append((p0, p1, int(q0[p0]), int(ends[p1 - 1] - q0[p0]),
-                    max(int(tot[p0:p1].max()), 1)))
+                    int(tot[p0:p1].max())))
         p0 = p1
     return out
 
@@ -332,15 +340,18 @@ def cell_grid(tree: CellList, plan: KernelPlan) -> knn_cuda.CellGrid:
                              tuple(float(v) for v in tree.inv_cell_size))
 
 
-def candidate_topk(tree: CellList, plan: KernelPlan, st: Staged, k: int):
-    """(d2 [Q, k], slot [Q, k]) of every sorted query over its piece's
-    candidates: B3 for k <= 128; above, B4 blocks chunked by
-    :data:`DIST_BLOCK_BYTES` and a stable-sort selection."""
-    q = st.qs.T.contiguous()
-    args = (st.piece_q0, st.piece_qn, st.piece_pid, plan.run_start,
-            plan.run_len, tree.xyz, plan.box)
-    if k <= knn_cuda.TOPK_MAX:
-        return knn_cuda.knn_topk(q, *args, k, grid=cell_grid(tree, plan))
+def _kernel_args(tree: CellList, plan: KernelPlan, st: Staged):
+    """The candidate kernels' shared arguments: q [3, Q], then the pieces,
+    the plan's runs, the tree's points and the box."""
+    return (st.qs.T.contiguous(), st.piece_q0, st.piece_qn, st.piece_pid,
+            plan.run_start, plan.run_len, tree.xyz, plan.box)
+
+
+def block_topk(tree: CellList, plan: KernelPlan, st: Staged, k: int):
+    """(d2 [Q, k], slot [Q, k]) through B4's distance blocks, chunked by
+    :data:`DIST_BLOCK_BYTES`, and a stable-sort selection from each: the
+    route of any k above B4's selection sink."""
+    q, *args = _kernel_args(tree, plan, st)
     Q = q.shape[1]
     d2 = torch.empty((Q, k), device=q.device)
     slot = torch.empty((Q, k), dtype=torch.int32, device=q.device)
@@ -352,6 +363,18 @@ def candidate_topk(tree: CellList, plan: KernelPlan, st: Staged, k: int):
         d2[r0:r0 + nr], slot[r0:r0 + nr] = knn_cuda.select_block(
             block, k, st.pid[r0:r0 + nr], plan.run_start, plan.run_len)
     return d2, slot
+
+
+def candidate_topk(tree: CellList, plan: KernelPlan, st: Staged, k: int):
+    """(d2 [Q, k], slot [Q, k]) of every sorted query over its piece's
+    candidates: B3 for k <= 128; B4's selection sink, one launch over all
+    pieces, up to its capacity (256); above, :func:`block_topk`."""
+    if k <= knn_cuda.TOPK_MAX:
+        return knn_cuda.knn_topk(*_kernel_args(tree, plan, st), k,
+                                 grid=cell_grid(tree, plan))
+    if k <= knn_cuda.SELECT_MAX:
+        return knn_cuda.knn_select(*_kernel_args(tree, plan, st), k)
+    return block_topk(tree, plan, st, k)
 
 
 def query_blocks_device(tree: CellList, queries, k: int,

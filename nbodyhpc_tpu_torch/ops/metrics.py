@@ -16,11 +16,27 @@ import torch
 
 
 def sqrt_f32(d2: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root. PyTorch's vectorized float32
-    ``sqrt`` on the CPU is off by one ulp for some inputs (measured on an
-    AVX-512 build, ~0.6% of uniform values), where XLA's and CUDA's are
-    exact; the root of the double is rounded once and always exact."""
-    return torch.sqrt(d2.to(torch.float64)).to(torch.float32)
+    """Correctly rounded float32 square root, as XLA's and CUDA's are.
+
+    On a CUDA tensor the root of the double, rounded once, is exact. On the
+    CPU PyTorch's vectorized ``sqrt`` is not correctly rounded, in float32
+    (off by one ulp for ~0.6% of uniform values, measured on an AVX-512
+    build) nor in float64, where its error can reach far enough to move the
+    float32 rounding of a few values in 1e5, and not the same ones in every
+    call. So there the rounded root ``r`` only brackets the answer, and
+    exact arithmetic decides: the midpoint of two neighbouring float32
+    values has 25 significant bits, its square 50, so ``x`` compares exactly
+    with the squares of ``r``'s two rounding boundaries in float64."""
+    x = d2.to(torch.float64)
+    r = torch.sqrt(x).to(torch.float32)
+    if d2.device.type != "cpu":
+        return r
+    up = torch.nextafter(r, r.new_tensor(float("inf")))
+    dn = torch.nextafter(r, r.new_tensor(float("-inf")))
+    m_up = (r.to(torch.float64) + up.to(torch.float64)) * 0.5
+    m_dn = (r.to(torch.float64) + dn.to(torch.float64)) * 0.5
+    out = torch.where(x > m_up * m_up, up, r)
+    return torch.where((r > 0) & (x < m_dn * m_dn), dn, out)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor

@@ -117,6 +117,26 @@ def test_fma_f32_is_correctly_rounded():
     assert got[-1] == np.float32(1 + 2.0**-23)
 
 
+@pytest.mark.parametrize("nudge", [0.0, 5e-8, -5e-8])
+def test_sqrt_f32_is_correctly_rounded(nudge, monkeypatch):
+    """Also where the library's root lands on a neighbour of the answer
+    (``nudge`` scales it by about an ulp of float32 either way)."""
+    from nbodyhpc_tpu_torch.ops.metrics import sqrt_f32
+
+    rng = np.random.Generator(np.random.Philox(10))
+    x = np.concatenate([
+        rng.random(200_000, dtype=np.float32),
+        np.exp(rng.uniform(-80, 80, 50_000)).astype(np.float32),
+        np.array([0, 1, 4, np.inf, np.finfo(np.float32).max,
+                  np.finfo(np.float32).tiny, 1e-45], np.float32)])
+    want = np.sqrt(x.astype(np.float64)).astype(np.float32)
+    real = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda v: real(v) * (1 + nudge))
+    got = sqrt_f32(torch.from_numpy(x)).numpy()
+    assert_bit_equal(got, want)
+    assert np.isnan(sqrt_f32(torch.tensor([-1.0, float("nan")])).numpy()).all()
+
+
 # ---------------------------------------------------------------------------
 # cell-list build
 # ---------------------------------------------------------------------------

@@ -216,11 +216,12 @@ def test_topk_plain_matches_pallas_fullz(periodic):
     assert torch.equal(ref[0], d2) and torch.equal(ref[1], slot)
 
 
-@pytest.mark.parametrize("periodic", [False, True])
-def test_dist_plain_matches_pallas_and_topk_blocks(periodic):
-    """B4's plain version against ``_run_knn`` (interpret, a small KGeom):
-    the same distances with candidates back to back, and the k > 128
-    selection against ``_topk_blocks``."""
+def pallas_dist_block(periodic):
+    """One block through ``_run_knn`` (interpret, a small KGeom) and the
+    same inputs for the port: (JAX block [1, 128, NCAND], JAX run table,
+    geom, {piece: runs}, the port's kernel arguments up to ``box``, each of
+    the 30 real rows' piece). Piece 0 holds 20 queries and 280 candidates,
+    piece 1 holds 10 and 160."""
     geom = jkp.KGeom(G=2, NR=4, RCAP=128)
     rng = np.random.Generator(np.random.Philox(78))
     npad = 1024
@@ -236,7 +237,36 @@ def test_dist_plain_matches_pallas_and_topk_blocks(periodic):
     d2j = jkp._run_knn(jnp.asarray(runs), jnp.asarray(qblk),
                        jnp.asarray(xyz), nblocks=1, periodic=periodic,
                        box=box, interpret=True, geom=geom)
-    d2j = np.asarray(d2j)
+    q = torch.from_numpy(np.ascontiguousarray(qblk[0, :30, :3].T))
+    pid = torch.tensor([0, 1], dtype=torch.int32)
+    args = (q, torch.tensor([0, 20], dtype=torch.int32),
+            torch.tensor([20, 10], dtype=torch.int32), pid, rs, rl,
+            torch.from_numpy(xyz), box)
+    return (np.asarray(d2j), runs, geom, spec, args,
+            torch.tensor([0] * 20 + [1] * 10))
+
+
+def assert_equals_topk_blocks(vals, slot, d2j, runs, geom, k):
+    """(vals, slot) of the 30 real rows equal ``_topk_blocks`` of the JAX
+    block: distances bit for bit, slots where the distance is finite, -1
+    elsewhere."""
+    dk, sk = jkp._topk_blocks(jnp.asarray(d2j), k)
+    dk, sk = np.asarray(dk)[:30], np.asarray(sk)[:30]
+    assert_bit_equal(vals.numpy(), dk)
+    g = np.where(np.arange(30) < 20, 0, 1)[:, None]
+    want_slot = runs[0, g, sk // geom.RCAP] + runs[
+        0, g, 2 * geom.NR + sk // geom.RCAP] + sk % geom.RCAP
+    fin = np.isfinite(dk)
+    np.testing.assert_array_equal(slot.numpy()[fin], want_slot[fin])
+    assert (slot.numpy()[~fin] == -1).all()
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+def test_dist_plain_matches_pallas_and_topk_blocks(periodic):
+    """B4's plain version against ``_run_knn`` (interpret, a small KGeom):
+    the same distances with candidates back to back, and the stable-sort
+    selection from the block against ``_topk_blocks``."""
+    d2j, runs, geom, spec, args, row_pid = pallas_dist_block(periodic)
     # the JAX block in the port's layout: each run's lanes back to back
     want = np.full((30, 400), np.inf, np.float32)
     for row in range(30):
@@ -245,27 +275,11 @@ def test_dist_plain_matches_pallas_and_topk_blocks(periodic):
                     for r, (_, ln) in enumerate(spec[p])]
         cat = np.concatenate(got_cols)
         want[row, :cat.size] = cat
-
-    q = torch.from_numpy(np.ascontiguousarray(qblk[0, :30, :3].T))
-    pid = torch.tensor([0, 1], dtype=torch.int32)
-    args = (q, torch.tensor([0, 20], dtype=torch.int32),
-            torch.tensor([20, 10], dtype=torch.int32), pid, rs, rl,
-            torch.from_numpy(xyz), box, 400)
-    block = tkc.knn_dist(*args)
+    block = tkc.knn_dist(*args, 400)
     assert_bit_equal(block.numpy(), want)
-
     k = 130
-    dk, sk = jkp._topk_blocks(jnp.asarray(d2j), k)
-    dk, sk = np.asarray(dk)[:30], np.asarray(sk)[:30]
-    row_pid = torch.tensor([0] * 20 + [1] * 10)
-    vals, slot = tkc.select_block(block, k, row_pid, rs, rl)
-    assert_bit_equal(vals.numpy(), dk)
-    g = np.where(np.arange(30) < 20, 0, 1)[:, None]
-    want_slot = runs[0, g, sk // geom.RCAP] + runs[
-        0, g, 2 * geom.NR + sk // geom.RCAP] + sk % geom.RCAP
-    fin = np.isfinite(dk)
-    np.testing.assert_array_equal(slot.numpy()[fin], want_slot[fin])
-    assert (slot.numpy()[~fin] == -1).all()
+    vals, slot = tkc.select_block(block, k, row_pid, args[4], args[5])
+    assert_equals_topk_blocks(vals, slot, d2j, runs, geom, k)
 
 
 def test_topk_kernel_wrapper_refuses_bad_inputs():
