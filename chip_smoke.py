@@ -5,8 +5,13 @@ Builds the kernels from ``nbodyhpc_tpu_torch/csrc/`` with nvcc, holds each
 against its plain PyTorch version on the card, drives the volume render
 (``nbodyhpc_tpu_torch.rasterizer.render_points_volume``) at a moderate size
 against the same render on the CPU, then at full size: 256^3 particles into
-a 1024^3 grid, periodic, subsample 4. Every phase is an assertion; any
-failure exits non-zero before the result line. Needs one CUDA device and
+a 1024^3 grid, periodic, subsample 4; then (phase 6) writes that set to a
+particle file, reads it back, renders it through the demo's ``--file`` path
+and streams it in batches, and (phase 7, after the k-NN phases) sends
+itself SIGINT during a long k-NN query and during a streamed render, and
+checks the calls after; last (phase 6b), it profiles one render of the
+file with ``profiling.trace``. Every phase is an assertion; any failure exits
+non-zero before the result line. Needs one CUDA device and
 ``nvcc`` (sm_90a); run from the repository root:
 
     python3 chip_smoke.py [--baseline-deposit PATH] [--baseline-topk PATH]
@@ -37,15 +42,23 @@ instruction rate.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import json
+import os
+import re
+import signal
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from unittest import mock
 
 import torch
+
+from nbodyhpc_tpu_torch.utils.profiling import device_busy_ms, synced
 
 SEED = 2024
 # atomics reorder float sums; built with --fmad=false, so no subcell quantum
@@ -352,45 +365,6 @@ def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def synced(fn):
-    """(fn(), wall ms) with the device drained before and after."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
-
-
-def device_busy_ms(fn, top: int = 6):
-    """(device busy ms, wall ms, the ``top`` device activities by ms) of one
-    ``fn()`` under ``torch.profiler``. Busy time is the union of the
-    intervals of the device's kernels, copies and fills; wall time is the
-    same call's, the device drained before and after. The profiler also
-    reports each operator's span on the device as an annotation around its
-    kernels; those would count the kernels twice and are left out."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        _, wall_ms = synced(fn)
-    by_name: dict = {}
-    spans = []
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            t0, t1 = e.time_range.start, e.time_range.end
-            spans.append((t0, t1))
-            by_name[e.name] = by_name.get(e.name, 0.0) + (t1 - t0) / 1e3
-    busy_us, end = 0.0, float("-inf")
-    for t0, t1 in sorted(spans):
-        if t1 > end:
-            busy_us += t1 - max(t0, end)
-            end = t1
-    rows = sorted(((ms, name) for name, ms in by_name.items()), reverse=True)
-    return (busy_us / 1e3, wall_ms,
-            {name[:48]: round(ms, 3) for ms, name in rows[:top]})
-
-
 def brute_knn(cl, queries, k: int, qchunk: int = 512, block: int = 1 << 18):
     """Plain exact brute force on the card: every point of the cell list
     ``cl`` against every query, with the port's distance expression, the
@@ -459,7 +433,8 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
     is printed beside every time; ``base_topk`` (from :func:`baseline_topk`)
     is timed against B3 in turns at every k, ``base_dist`` (from
     :func:`baseline_dist`) against B4's block sink. Returns the kernels'
-    entries for the result line."""
+    entries for the result line, and kNN-3's (tree, queries, distances,
+    indices)."""
     import numpy as np
 
     from nbodyhpc_tpu_torch.kdtree import KDTree
@@ -781,7 +756,8 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
     log(f"kNN-3: profiled query_device: device busy {busy_ms:.3f} ms of its "
         f"wall {wall_ms:.3f} ms, idle share {idle:.3f}; by kernel (ms): "
         f"{top}")
-    del tree, cl, plan, st, pts, queries, d, idx, d2s, slot, cv
+    # the harness's tree, queries and answer stay for phase 7
+    del cl, plan, st, pts, d2s, slot, cv
     torch.cuda.empty_cache()
 
     # ---- kNN-4: the k > 128 routes end to end ------------------------------
@@ -909,7 +885,268 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
          "ms": b4_ms, "plain_ms": b4_plain_ms,
          "bound_ms": b4_bound_ms, "bound_by": b4_bound_by,
          "library_ms": None},
-    ]
+    ], (tree, queries, d, idx)
+
+
+# phase 6 streams the file in the runtime's default batches (5 at 256^3),
+# phase 7 interrupts a stream of 17 batches
+STREAM_ROWS, CANCEL_ROWS = 4_000_000, 1_000_000
+RATIO_LINE = re.compile(r"mass conservation rendered/input: ([0-9.]+)")
+
+
+class _TimedReader:
+    """Stands in for a stream's reader pool and adds up the seconds the
+    stream waits for its reads: with ``sync`` False the pool the package
+    makes (batch i+1 read on its thread while batch i renders), with
+    ``sync`` True none (each read runs at once on the calling thread, so
+    the wait is the whole read)."""
+
+    sync = False
+    waited = 0.0
+
+    def __init__(self, *args, **kwargs):
+        self._pool = (None if _TimedReader.sync else
+                      concurrent.futures.ThreadPoolExecutor(*args, **kwargs))
+
+    def submit(self, fn, *args):
+        t0 = time.perf_counter()
+        if self._pool is None:
+            fut = concurrent.futures.Future()
+            fut.set_result(fn(*args))
+            _TimedReader.waited += time.perf_counter() - t0
+            return fut
+        return _TimedFuture(self._pool.submit(fn, *args))
+
+    def shutdown(self, *args, **kwargs):
+        if self._pool is not None:
+            self._pool.shutdown(*args, **kwargs)
+
+
+class _TimedFuture:
+    def __init__(self, fut):
+        self._fut = fut
+
+    def result(self):
+        t0 = time.perf_counter()
+        try:
+            return self._fut.result()
+        finally:
+            _TimedReader.waited += time.perf_counter() - t0
+
+
+def file_phase(tmp: str, pos, w, r, grid: int, smi: str):
+    """Phase 6: the full-size workload written to a particle file with
+    ``runtime.save_particles`` and read back bit-equal; the demo's bulk
+    ``--file --periodic`` render of it (mass ratio, B1 and B2 launched);
+    the file streamed in batches of :data:`STREAM_ROWS`, summed on the card
+    and held to one render of the whole set (both non-periodic, through the
+    renderer's device path), with and without the prefetch, in turns.
+    Returns (file, renderer, the one-call field on the host)."""
+    import io
+
+    import numpy as np
+
+    from nbodyhpc_tpu_torch import runtime
+    from nbodyhpc_tpu_torch.cli import rasterizer_demo as demo
+    from nbodyhpc_tpu_torch.ops import splat_cuda as sc
+    from nbodyhpc_tpu_torch.rasterizer import Container, get_point_renderer
+
+    t_phase = time.perf_counter()
+    n = pos.shape[0]
+    host = [t.cpu().numpy() for t in (pos, w, r)]
+    path = os.path.join(tmp, "particles.bin")
+    t0 = time.perf_counter()
+    runtime.save_particles(path, *host)
+    write_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    if nbytes != 20 * n:
+        fail(f"phase 6: the file holds {nbytes} B, not {20 * n}")
+    t0 = time.perf_counter()
+    back = runtime.load_particles(path)
+    read_s = time.perf_counter() - t0
+    for a, b in zip(back, host):
+        if not np.array_equal(a.view(np.int32), b.view(np.int32)):
+            fail("phase 6: the particles read back differ from those written")
+    t0 = time.perf_counter()
+    runtime._load_records(path, 5)
+    records_s = time.perf_counter() - t0
+    log(f"phase 6: wrote {n} particles, {nbytes} B, in {write_s:.3f} s "
+        f"({nbytes / write_s / 1e9:.2f} GB/s, into the page cache); "
+        f"load_particles read them back bit-equal in {read_s:.3f} s "
+        f"({nbytes / read_s / 1e9:.2f} GB/s), of which the records alone "
+        f"(a fresh buffer, readinto) {records_s:.3f} s")
+
+    # the demo's bulk path, as a user runs it
+    sc.align.launches = sc.deposit.launches = 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = demo.main(["--file", path, "--grid", str(grid), "--periodic"])
+    launches = (sc.align.launches, sc.deposit.launches)
+    ratio = RATIO_LINE.search(out.getvalue())
+    if rc != 0 or ratio is None:
+        fail(f"phase 6: the demo returned {rc}: {out.getvalue()}")
+    if abs(float(ratio.group(1)) - 1.0) > 0.01:
+        fail(f"phase 6: the demo's mass ratio {ratio.group(1)} is not "
+             f"within 1% of 1")
+    if min(launches) == 0:
+        fail(f"phase 6: a kernel was not launched by the demo (align, "
+             f"deposit) = {launches}")
+    log(f"phase 6: demo --file --grid {grid} --periodic ({smi}): "
+        + "; ".join(out.getvalue().strip().splitlines())
+        + f"; launches (align, deposit) {launches}")
+
+    # the stream against one render of the whole set, on the card
+    renderer = get_point_renderer(grid, 4, Container())
+    ppu = float(grid)
+
+    def stream(rows):
+        return demo.stream_volume(renderer, path, grid, ppu, rows)
+
+    one, one_ms = synced(lambda: renderer._render_volume_device(
+        *back, grid, ppu))
+    turns = {"prefetch": [], "sync": []}
+    waited = {"prefetch": 0.0, "sync": 0.0}
+    err = 0.0
+    for who in ("prefetch", "sync", "sync", "prefetch"):
+        _TimedReader.sync, _TimedReader.waited = who == "sync", 0.0
+        with mock.patch.object(runtime, "ThreadPoolExecutor", _TimedReader):
+            (field, n_s, _), ms = synced(lambda: stream(STREAM_ROWS))
+        turns[who].append(ms)
+        waited[who] += _TimedReader.waited * 1e3 / 2
+        if n_s != n:
+            fail(f"phase 6: the stream gave {n_s} particles, not {n}")
+        err = max(err, check_close(f"phase 6 {who} stream vs one render",
+                                   field, one))
+        del field
+    log(f"phase 6: stream of {-(-n // STREAM_ROWS)} batches of "
+        f"{STREAM_ROWS} rows, non-periodic, summed on the card ({smi}): "
+        f"{sum(turns['prefetch']) / 2:.3f} ms (turns {turns['prefetch']}), "
+        f"reads made synchronous {sum(turns['sync']) / 2:.3f} ms (turns "
+        f"{turns['sync']}); waited for reads: {waited['prefetch']:.3f} ms "
+        f"with the prefetch, {waited['sync']:.3f} ms without (the read "
+        f"time), so the prefetch hid "
+        f"{1 - waited['prefetch'] / waited['sync']:.3f} of it; one render "
+        f"of all {n} through the device path {one_ms:.3f} ms; the stream "
+        f"equals it within rtol {RTOL} atol {ATOL}, max abs err {err:.3e}")
+
+    one = one.cpu()
+    log(f"phase 6: {time.perf_counter() - t_phase:.1f} s of command time")
+    return path, renderer, one
+
+
+def trace_phase(path: str, renderer, smi: str):
+    """Phase 6b, run last: one device render of phase 6's file under
+    ``profiling.trace`` (its Chrome trace must name the deposit kernel),
+    then the same render's device busy time. After a trace session later
+    launches were slower on this card, so no timed phase follows it."""
+    from nbodyhpc_tpu_torch import runtime
+    from nbodyhpc_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    back = runtime.load_particles(path)
+    grid = renderer.height
+    ppu = float(grid)
+    trace_dir = os.path.join(os.path.dirname(path), "trace")
+    with profiling.trace(trace_dir):
+        renderer._render_volume_device(*back, grid, ppu)
+    trace_json = os.path.join(trace_dir, "trace.json")
+    with open(trace_json) as f:
+        named = f.read().count("deposit_kernel")
+    if not named:
+        fail(f"phase 6b: {trace_json} does not name deposit_kernel")
+    busy_ms, wall_ms, top = device_busy_ms(
+        lambda: renderer._render_volume_device(*back, grid, ppu), top=10)
+    log(f"phase 6b: profiling.trace wrote {os.path.getsize(trace_json)} B, "
+        f"{named} events of deposit_kernel; device_busy_ms of the same "
+        f"render ({smi}): busy {busy_ms:.3f} ms of its wall {wall_ms:.3f} "
+        f"ms, idle share {1 - busy_ms / wall_ms:.3f}; by kernel (ms): {top}")
+    log(f"phase 6b: {time.perf_counter() - t_phase:.1f} s of command time")
+
+
+def interrupted_ms(fn, full_ms: float) -> float:
+    """Runs ``fn`` with SIGINT sent to this process at 40% of ``full_ms``;
+    returns the ms until ``fn`` raised ``KeyboardInterrupt``. Fails if
+    ``fn`` returns; a signal after that ends the script."""
+    torch.cuda.synchronize()
+    timer = threading.Timer(0.4 * full_ms / 1e3, os.kill,
+                            (os.getpid(), signal.SIGINT))
+    t0 = time.perf_counter()
+    timer.start()
+    try:
+        fn()
+    except KeyboardInterrupt:
+        ms = (time.perf_counter() - t0) * 1e3
+    else:
+        timer.cancel()
+        fail("phase 7: the call ended before the signal")
+    finally:
+        timer.join()
+    torch.cuda.synchronize()
+    if ms >= 0.8 * full_ms:
+        fail(f"phase 7: interrupted at {0.4 * full_ms:.1f} ms, the call "
+             f"ended at {ms:.1f} ms, not before {0.8 * full_ms:.1f} ms")
+    return ms
+
+
+def cancel_phase(path: str, renderer, ref_host, harness, smi: str):
+    """Phase 7: SIGINT during a long ladder ``query_device`` and during a
+    streamed render of phase 6's file; each must raise
+    ``KeyboardInterrupt`` before 80% of its uninterrupted time, and the
+    next call must be right: kNN-3's answer bit for bit through the kernel
+    route, phase 6's field within rtol/atol with no reader thread left."""
+    from nbodyhpc_tpu_torch.cli import rasterizer_demo as demo
+    from nbodyhpc_tpu_torch.ops import knn, knn_cuda as kc
+
+    t_phase = time.perf_counter()
+    tree, queries, d3, i3 = harness
+    q = queries
+    _, full_ms = synced(lambda: tree.query_device(q, KNN_K, engine="ladder"))
+    while full_ms < 1000.0:
+        q = torch.cat([q, q])
+        _, full_ms = synced(lambda: tree.query_device(q, KNN_K,
+                                                      engine="ladder"))
+    ms = interrupted_ms(lambda: tree.query_device(q, KNN_K, engine="ladder"),
+                        full_ms)
+    kc.knn_topk.launches = 0
+    d, idx = tree.query_device(queries, KNN_K)
+    if kc.knn_topk.launches == 0:
+        fail("phase 7: the k-NN check after the interrupt took no kernel")
+    if not (bits_equal(d, d3) and torch.equal(idx, i3)):
+        fail("phase 7: the k-NN answer after the interrupt differs from "
+             "kNN-3's")
+    chunk = knn.ladder_chunk(knn.default_ladder(tree._tree))
+    log(f"phase 7: ladder query_device of {q.shape[0]} queries k={KNN_K} "
+        f"in {-(-q.shape[0] // chunk)} chunks of {chunk} ({smi}): "
+        f"{full_ms:.3f} ms; SIGINT at 40% -> KeyboardInterrupt "
+        f"after {ms:.3f} ms ({ms / full_ms:.3f} of the call); the next "
+        f"kernel-route query_device equals kNN-3's bit for bit")
+    del d, idx, harness, tree, queries, d3, i3, q
+
+    ref = ref_host.to(renderer.container.device)
+    grid = ref.shape[2]
+
+    def stream():
+        return demo.stream_volume(renderer, path, grid, float(grid),
+                                  CANCEL_ROWS)
+
+    before = threading.active_count()
+    (field, n, _), full_ms = synced(stream)
+    err = check_close("phase 7 stream vs phase 6", field, ref)
+    del field
+    ms = interrupted_ms(stream, full_ms)
+    if threading.active_count() != before:
+        fail(f"phase 7: {threading.active_count()} threads after the "
+             f"interrupted stream, {before} before it")
+    (field, _, _), _ = synced(stream)
+    err = max(err, check_close("phase 7 stream after the interrupt",
+                               field, ref))
+    log(f"phase 7: stream of {-(-n // CANCEL_ROWS)} batches of "
+        f"{CANCEL_ROWS} rows ({smi}): {full_ms:.3f} ms; SIGINT at 40% -> "
+        f"KeyboardInterrupt after {ms:.3f} ms ({ms / full_ms:.3f} of the "
+        f"call), {before} threads before and after; the next stream equals "
+        f"phase 6's field within rtol {RTOL} atol {ATOL}, max abs err "
+        f"{err:.3e}")
+    log(f"phase 7: {time.perf_counter() - t_phase:.1f} s of command time")
 
 
 def main() -> int:
@@ -1197,6 +1434,9 @@ def main() -> int:
         f"{dratio:.6f}; launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
+    # removed at the end, or by its finalizer when a phase fails
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    path, renderer, ref6 = file_phase(tmp.name, pos, w, r, g_full, smi)
     del pos, w, r, part
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1221,7 +1461,12 @@ def main() -> int:
                  else None)
     base_dist = (baseline_dist(opts.baseline_dist) if opts.baseline_dist
                  else None)
-    kernels += knn_phases(dev, gen, smi, base_topk, base_dist)
+    knn_kernels, harness = knn_phases(dev, gen, smi, base_topk, base_dist)
+    kernels += knn_kernels
+    cancel_phase(path, renderer, ref6, harness, smi)
+    del ref6, harness
+    trace_phase(path, renderer, smi)
+    tmp.cleanup()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

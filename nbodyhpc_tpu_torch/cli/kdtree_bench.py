@@ -42,10 +42,11 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from ..kdtree import KDTree
+    from ..runtime import load_points
     from ..utils.philox import random_points
 
     if args.file:
-        pts = np.fromfile(args.file, dtype=np.float32).reshape(-1, 3)
+        pts = load_points(args.file)
     else:
         pts = random_points(int(args.num_points), args.seed, args.box_size)
     nq = min(int(args.num_queries), len(pts))

@@ -219,28 +219,35 @@ class PointRenderer:
                                       self.subsample_factor)
         return self._finish(vol[:, :, 0])
 
-    def render_points_volume(self, positions, weights, radii, num_slices: int,
-                             pixels_per_unit: float,
-                             period=(-1.0, -1.0, -1.0)) -> np.ndarray:
-        """Render the full volume; returns (height, width, num_slices)
-        float32 F-order. Reference path: pybind.cpp:98-123 +
-        point_renderer.cpp:825-950."""
+    def _render_volume_device(self, positions, weights, radii,
+                              num_slices: int, pixels_per_unit: float,
+                              period=(-1.0, -1.0, -1.0)) -> torch.Tensor:
+        """The volume as a C-order (nx, ny, num_slices) float32 tensor on
+        the container's device, before the copy to the host: a streamed
+        render sums its batches here."""
         positions, weights, radii = self._prepare(positions, weights, radii,
                                                   period)
         grid = (self._nx, self._ny, int(num_slices))
         if self._use_engine():
             from ..ops import splat_cuda
 
-            vol = splat_cuda.splat_volume(
+            return splat_cuda.splat_volume(
                 positions, weights, radii, float(pixels_per_unit), grid,
                 self.subsample_factor,
             )
-        else:
-            vol = _splat.splat_volume_oracle(
-                positions, weights, radii, float(pixels_per_unit), grid,
-                self.subsample_factor,
-            )
-        return self._finish(vol)
+        return _splat.splat_volume_oracle(
+            positions, weights, radii, float(pixels_per_unit), grid,
+            self.subsample_factor,
+        )
+
+    def render_points_volume(self, positions, weights, radii, num_slices: int,
+                             pixels_per_unit: float,
+                             period=(-1.0, -1.0, -1.0)) -> np.ndarray:
+        """Render the full volume; returns (height, width, num_slices)
+        float32 F-order. Reference path: pybind.cpp:98-123 +
+        point_renderer.cpp:825-950."""
+        return self._finish(self._render_volume_device(
+            positions, weights, radii, num_slices, pixels_per_unit, period))
 
 
 @functools.lru_cache(maxsize=None)

@@ -331,7 +331,8 @@ def test_port_imports_no_jax():
             "nbodyhpc_tpu_torch.kdtree, nbodyhpc_tpu_torch.ops.knn_device, "
             "nbodyhpc_tpu_torch.ops.knn_cuda, nbodyhpc_tpu_torch.ops.ball, "
             "nbodyhpc_tpu_torch.utils.stats, nbodyhpc_tpu_torch.utils.philox, "
-            "nbodyhpc_tpu_torch.cli.kdtree_bench; "
+            "nbodyhpc_tpu_torch.cli.kdtree_bench, nbodyhpc_tpu_torch.runtime, "
+            "nbodyhpc_tpu_torch.utils.profiling; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nbodyhpc_tpu.'))]; "
             "assert not bad, bad")
