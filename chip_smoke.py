@@ -7,10 +7,12 @@ against its plain PyTorch version on the card, drives the volume render
 against the same render on the CPU, then at full size: 256^3 particles into
 a 1024^3 grid, periodic, subsample 4; then (phase 6) writes that set to a
 particle file, reads it back, renders it through the demo's ``--file`` path
-and streams it in batches, and (phase 7, after the k-NN phases) sends
-itself SIGINT during a long k-NN query and during a streamed render, and
-checks the calls after; last (phase 6b), it profiles one render of the
-file with ``profiling.trace``. Every phase is an assertion; any failure exits
+and streams it in batches; after the k-NN phases (phase 8) spawns ranks
+of the sharded path (``nbodyhpc_tpu_torch.parallel``): one NCCL rank, then
+two gloo ranks sharing the card at full size, each held to the single
+process; then (phase 7) sends itself SIGINT during a long k-NN query and
+during a streamed render, and checks the calls after; last (phase 6b), it
+profiles one render of the file with ``profiling.trace``. Every phase is an assertion; any failure exits
 non-zero before the result line. Needs one CUDA device and
 ``nvcc`` (sm_90a); run from the repository root:
 
@@ -33,7 +35,8 @@ against the package's block sink in turns, in kNN-2.
 
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``;
-the line before it lists every kernel with its launches on the main path,
+the line before it lists every kernel with its launches on the main path
+(and on the sharded path, summed over ranks),
 its largest difference from its plain version, both times and its bound:
 the least time the card could take for the same work, the larger of its
 bytes over the memory rate and its float32 instructions over the
@@ -1149,6 +1152,349 @@ def cancel_phase(path: str, renderer, ref_host, harness, smi: str):
     log(f"phase 7: {time.perf_counter() - t_phase:.1f} s of command time")
 
 
+# ---- phase 8: the sharded path, spawned ranks ------------------------------
+# 8a: one NCCL rank at a smaller size; 8b: two gloo ranks sharing the card at
+# full size. Sizes travel in a spec, so a rehearsal on the CPU can cut them.
+SHARDED_SPEC = {
+    "8a": {"backend": "nccl", "nprocs": 1, "device": "cuda:0",
+           "render_n": 2_000_000, "render_grid": 256,
+           "knn_n": 1_000_000, "knn_q": 50_000, "timeout": 240},
+    "8b": {"backend": "gloo", "nprocs": 2, "device": "cuda:0",
+           "render_n": 256**3, "render_grid": 1024,
+           "knn_n": KNN_N, "knn_q": KNN_Q, "knn2_n": KNN2_N,
+           "knn2_q": KNN2_Q, "timeout": 420},
+}
+# the kNN-CDF of phase 8b: k up to the harness's, radii past its 16th
+# neighbour distance (~0.0073 at 1e7 points)
+CDF_K, CDF_RMAX, CDF_NR = (1, 2, 4, 8, 16), 0.012, 64
+SHARDED_KERNELS = ("splat_align", "splat_deposit", "knn_topk", "knn_select",
+                   "knn_dist")
+
+
+def _launches() -> dict:
+    """Every kernel's launch count, by the name of its ``kernels`` row."""
+    from nbodyhpc_tpu_torch.ops import knn_cuda as kc, splat_cuda as sc
+
+    return {"splat_align": sc.align.launches,
+            "splat_deposit": sc.deposit.launches,
+            "knn_topk": kc.knn_topk.launches,
+            "knn_select": kc.knn_select.launches,
+            "knn_dist": kc.knn_dist.launches}
+
+
+def _zero_launches() -> None:
+    from nbodyhpc_tpu_torch.ops import knn_cuda as kc, splat_cuda as sc
+
+    sc.align.launches = sc.deposit.launches = 0
+    kc.knn_topk.launches = kc.knn_select.launches = kc.knn_dist.launches = 0
+
+
+def knn_inputs(n: int, q: int, seed: int, dev, queries_apart: bool):
+    """kNN-1's points made again from the seed (queries: the first ``q``
+    points), or with ``queries_apart`` kNN-2's (``q`` random queries drawn
+    after the points)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    pts = torch.rand((n, 3), generator=gen, device=dev)
+    if queries_apart:
+        return pts, torch.rand((q, 3), generator=gen, device=dev)
+    return pts, pts[:q]
+
+
+def sharded_rank(rank: int, phase: str, spec: dict, tmp: str) -> None:
+    """One rank of phase 8: join the phase's process group (a ``file://``
+    store in ``tmp``), drive the sharded path through the entry points a
+    user calls, and write what it returned, its launch counts and its
+    times to ``tmp/<phase>_rank<r>.{npz,json}``. Rank 0 also holds the
+    gathered field to the single-process render of the same inputs.
+    The k-NN calls are timed after a warm-up call, the render cold;
+    launches are counted per timed call, from zero."""
+    import hashlib
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from nbodyhpc_tpu_torch.kdtree import KDTree
+    from nbodyhpc_tpu_torch.parallel.mesh import make_slab_mesh
+    from nbodyhpc_tpu_torch.parallel.sharded import (
+        knn_query_sharded,
+        render_points_volume_sharded,
+    )
+    from nbodyhpc_tpu_torch.parallel.stats import knn_cdf_sharded
+    from nbodyhpc_tpu_torch.rasterizer import Container, get_point_renderer
+
+    # the group's sockets stay on this machine
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(spec["backend"],
+                            init_method=f"file://{tmp}/store_{phase}",
+                            world_size=spec["nprocs"], rank=rank)
+    arrays, info = {}, {"launches": {}, "ms": {}}
+
+    def call(name, fn, warm=True):
+        """``fn()`` timed (after one warm-up call unless ``warm`` is
+        False), its launches counted from zero."""
+        if warm:
+            fn()
+        _zero_launches()
+        out, ms = synced(fn)
+        info["launches"][name] = _launches()
+        info["ms"][name] = ms
+        return out
+
+    try:
+        mesh = make_slab_mesh(device=None if dev.type == "cuda" else dev)
+        if mesh.device != dev:
+            fail(f"phase {phase}: rank {rank} computes on {mesh.device}")
+        info["backend"] = mesh.backend
+
+        # the k-NN harness (8b: through KDTree.query(workers=-1))
+        pts, q = knn_inputs(spec["knn_n"], spec["knn_q"], SEED + 10, dev,
+                            False)
+        tree = KDTree(pts, boxsize=1.0)
+        q_np = q.cpu().numpy()
+        if phase == "8a":
+            arrays["knn_d"], arrays["knn_i"] = call(
+                "knn", lambda: knn_query_sharded(tree._tree, q_np, KNN_K,
+                                                 mesh))
+            ref_d, ref_i = tree.query(q_np, k=KNN_K)
+            if not (np.array_equal(arrays["knn_d"].view(np.int32),
+                                   ref_d.view(np.int32))
+                    and np.array_equal(arrays["knn_i"], ref_i)):
+                fail("phase 8a: knn_query_sharded differs from the single "
+                     "process's query")
+        else:
+            arrays["knn_d"], arrays["knn_i"] = call(
+                "knn", lambda: tree.query(q_np, k=KNN_K, workers=-1))
+            # the k > 128 route on kNN-2's inputs
+            pts2, q2 = knn_inputs(spec["knn2_n"], spec["knn2_q"], SEED + 11,
+                                  dev, True)
+            tree2 = KDTree(pts2, boxsize=1.0, leafsize=KNN2_LEAFSIZE)
+            q2_np = q2.cpu().numpy()
+            arrays["knn2_d"], arrays["knn2_i"] = call(
+                "knn2", lambda: knn_query_sharded(tree2._tree, q2_np,
+                                                  KNN2_K, mesh))
+            del tree2, pts2, q2
+            radii = np.linspace(0.0, CDF_RMAX, CDF_NR)
+            arrays["cdf_r"], arrays["cdf"] = call(
+                "cdf", lambda: knn_cdf_sharded(tree._tree, CDF_K, radii,
+                                               n_queries=spec["knn_q"],
+                                               mesh=mesh, seed=0))
+        del tree, pts, q
+        torch.cuda.empty_cache()
+
+        # the render set (phase 5's), the first render_n particles
+        g = spec["render_grid"]
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        pos, w, r = lognormal_workload(256**3, 1024, gen)
+        n = spec["render_n"]
+        pos, w, r = pos[:n], w[:n], r[:n]
+        vol, overflow = call("render", lambda: render_points_volume_sharded(
+            pos, w, r, float(g), g, periodic=True, mesh=mesh), warm=False)
+        info["render_stats"] = render_points_volume_sharded.stats
+        info["overflow"] = overflow
+        t0 = time.perf_counter()
+        info["digest"] = hashlib.sha256(memoryview(vol).cast("B")).hexdigest()
+        info["digest_s"] = time.perf_counter() - t0
+        if rank == 0:
+            # the single process's render of the same inputs: the device
+            # stage of phase 5's render_points_volume, before its copy to
+            # the host
+            ref = get_point_renderer(g, 4, Container(device=dev)
+                                     )._render_volume_device(
+                pos, w, r, g, float(g), (1.0, 1.0, 1.0))
+            got = torch.from_numpy(vol).to(dev)
+            info["render_err"] = check_close(
+                f"phase {phase} sharded render vs one process", got, ref)
+            info["mass_ratio"] = float(got.sum(dtype=torch.float64)) / float(
+                w.sum(dtype=torch.float64))
+            del ref, got
+        np.savez(os.path.join(tmp, f"{phase}_rank{rank}.npz"), **arrays)
+        with open(os.path.join(tmp, f"{phase}_rank{rank}.json"), "w") as f:
+            json.dump(info, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(phase: str, spec: dict, tmp: str) -> list:
+    """Run :func:`sharded_rank` on ``spec["nprocs"]`` spawned processes;
+    fails when a rank raises or dies, or when the ranks do not all finish
+    within ``spec["timeout"]`` seconds (a hung collective). Returns each
+    rank's (arrays, info)."""
+    import numpy as np
+    import torch.multiprocessing as mp
+    from torch.multiprocessing.spawn import ProcessException
+
+    ctx = mp.start_processes(sharded_rank, args=(phase, spec, tmp),
+                             nprocs=spec["nprocs"], join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + spec["timeout"]
+    try:
+        while not ctx.join(timeout=max(deadline - time.monotonic(), 0.0)):
+            if time.monotonic() >= deadline:
+                fail(f"phase {phase}: the ranks did not finish in "
+                     f"{spec['timeout']} s")
+    except ProcessException as e:
+        fail(f"phase {phase}: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    out = []
+    for r in range(spec["nprocs"]):
+        with np.load(os.path.join(tmp, f"{phase}_rank{r}.npz")) as z:
+            arrays = dict(z)
+        with open(os.path.join(tmp, f"{phase}_rank{r}.json")) as f:
+            out.append((arrays, json.load(f)))
+    return out
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _render_log(info: dict, g: int, n: int) -> str:
+    st = info["render_stats"]
+    return (f"{n} particles -> {g}^3 periodic: {info['ms']['render']:.3f} "
+            f"ms; hops {st['hops']}, rows sent down {st['rows_down']} / up "
+            f"{st['rows_up']}, received {st['rows_received']}; exchange "
+            f"{st['exchange_s'] * 1e3:.3f} ms, {st['exchange_bytes']} B; "
+            f"gather {st['gather_s'] * 1e3:.3f} ms (in all_gather "
+            f"{st['gather_wire_s'] * 1e3:.3f} ms); sha256 "
+            f"{info['digest_s'] * 1e3:.1f} ms; launches "
+            f"{_nonzero(info['launches']['render'])}")
+
+
+def sharded_phase(tmp: str, harness, smi: str,
+                  spec: dict = SHARDED_SPEC) -> dict:
+    """Phase 8: the sharded path on spawned ranks. 8a: one NCCL rank on
+    the card (device tensors in every collective) at a smaller size, held
+    to the single process. 8b: two gloo ranks on the one card (exchanges
+    staged through the host; NCCL takes no two ranks on one GPU) at full
+    size: the 256^3 -> 1024^3 render held to one process's render,
+    ``KDTree.query(workers=-1)`` on the harness and ``knn_query_sharded``
+    at k=200 held bit for bit to kNN-3's and kNN-2's single-process
+    answers, the kNN-CDF equal to one computed here from the same
+    queries. Every rank must return the same and launch each kernel of
+    its path. ``harness``: kNN-3's (tree, queries, distances, indices).
+    Returns the kernels' launches on the path, summed over ranks."""
+    import numpy as np
+
+    from nbodyhpc_tpu_torch.kdtree import KDTree
+    from nbodyhpc_tpu_torch.parallel.stats import cdf_queries
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(SHARDED_KERNELS, 0)
+
+    def need(phase, info, call, names):
+        for name in names:
+            if info["launches"][call][name] == 0:
+                fail(f"phase {phase}: a rank's {call} call launched no "
+                     f"{name}: {info['launches'][call]}")
+
+    def add(info):
+        for counts in info["launches"].values():
+            for name, c in counts.items():
+                total[name] += c
+
+    torch.cuda.empty_cache()
+    a = spec["8a"]
+    (_, info), = spawn_ranks("8a", a, tmp)
+    if info["backend"] != a["backend"] or info["overflow"] != 0:
+        fail(f"phase 8a: backend {info['backend']}, overflow "
+             f"{info['overflow']}")
+    need("8a", info, "knn", ("knn_topk",))
+    need("8a", info, "render", ("splat_align", "splat_deposit"))
+    add(info)
+    log(f"phase 8a ({smi}): one {a['backend']} rank on {a['device']}: "
+        f"knn_query_sharded {a['knn_q']} self-queries k={KNN_K} on "
+        f"{a['knn_n']} points {info['ms']['knn']:.3f} ms, bit-equal to the "
+        f"single process, launches {_nonzero(info['launches']['knn'])}; "
+        f"render "
+        + _render_log(info, a["render_grid"], a["render_n"])
+        + f"; the field within rtol {RTOL} atol {ATOL} of one process's "
+        f"(max abs err {info['render_err']:.3e}), mass ratio "
+        f"{info['mass_ratio']:.6f}")
+
+    b = spec["8b"]
+    ranks = spawn_ranks("8b", b, tmp)
+    arrays, info = ranks[0]
+    for r, (arr_r, info_r) in enumerate(ranks):
+        if info_r["backend"] != b["backend"] or info_r["overflow"] != 0:
+            fail(f"phase 8b: rank {r}: backend {info_r['backend']}, "
+                 f"overflow {info_r['overflow']}")
+        if info_r["digest"] != info["digest"] or arr_r.keys() != arrays.keys():
+            fail(f"phase 8b: rank {r} returned another field or key set")
+        for key, val in arrays.items():
+            if not np.array_equal(arr_r[key], val):
+                fail(f"phase 8b: rank {r}'s {key} differs from rank 0's")
+        need("8b", info_r, "knn", ("knn_topk",))
+        need("8b", info_r, "knn2", ("knn_select",))
+        need("8b", info_r, "cdf", ("knn_topk",))
+        need("8b", info_r, "render", ("splat_align", "splat_deposit"))
+        add(info_r)
+    if abs(info["mass_ratio"] - 1.0) > 0.01:
+        fail(f"phase 8b: mass ratio {info['mass_ratio']:.6f} not within 1% "
+             f"of 1")
+
+    tree, queries, d, idx = harness
+    if not (np.array_equal(arrays["knn_d"].view(np.int32),
+                           d.cpu().numpy().view(np.int32))
+            and np.array_equal(arrays["knn_i"],
+                               idx.cpu().numpy().astype(np.uint32))):
+        fail("phase 8b: query(workers=-1) differs from kNN-3's answer")
+    pts2, q2 = knn_inputs(b["knn2_n"], b["knn2_q"], SEED + 11,
+                          queries.device, True)
+    d2, i2 = KDTree(pts2, boxsize=1.0, leafsize=KNN2_LEAFSIZE).query(
+        q2.cpu().numpy(), k=KNN2_K)
+    if not (np.array_equal(arrays["knn2_d"].view(np.int32),
+                           d2.view(np.int32))
+            and np.array_equal(arrays["knn2_i"], i2)):
+        fail(f"phase 8b: knn_query_sharded at k={KNN2_K} differs from the "
+             f"single process's query")
+    del pts2, q2, d2, i2
+    radii = np.linspace(0.0, CDF_RMAX, CDF_NR).astype(np.float32)
+    cq, qloc = cdf_queries(tree._tree, b["knn_q"], b["nprocs"], seed=0)
+    dc, _ = tree.query(cq, k=max(CDF_K))
+    kth = dc[:, [k - 1 for k in CDF_K]]
+    hist = (kth[:, :, None] <= radii[None, None, :]).sum(0)
+    cdf = hist.astype(np.float32) / (b["nprocs"] * qloc)
+    if not (np.array_equal(arrays["cdf"], cdf)
+            and np.array_equal(arrays["cdf_r"], radii)):
+        fail("phase 8b: knn_cdf_sharded differs from the single process's "
+             "CDF of the same queries")
+    ms = [i_r["ms"] for _, i_r in ranks]
+    log(f"phase 8b ({smi}): {b['nprocs']} {b['backend']} ranks sharing "
+        f"{b['device']}, every "
+        f"rank's answers identical. query(workers=-1) {b['knn_q']} "
+        f"self-queries k={KNN_K} on {b['knn_n']} points, bit-equal to "
+        f"kNN-3: rank ms {[round(m['knn'], 3) for m in ms]}, launches "
+        f"{[_nonzero(i_r['launches']['knn']) for _, i_r in ranks]}; "
+        f"knn_query_sharded "
+        f"{b['knn2_q']} queries k={KNN2_K}, bit-equal to one process: rank "
+        f"ms {[round(m['knn2'], 3) for m in ms]}, launches "
+        f"{[_nonzero(i_r['launches']['knn2']) for _, i_r in ranks]}; "
+        f"knn_cdf_sharded "
+        f"k={CDF_K} on {b['nprocs'] * qloc} queries, equal to one "
+        f"process's: rank ms {[round(m['cdf'], 3) for m in ms]}, launches "
+        f"{[_nonzero(i_r['launches']['cdf']) for _, i_r in ranks]}")
+    for r, (_, info_r) in enumerate(ranks):
+        log(f"phase 8b: rank {r} render "
+            + _render_log(info_r, b["render_grid"], b["render_n"]))
+    log(f"phase 8b: the gathered {b['render_grid']}^3 field within rtol "
+        f"{RTOL} atol {ATOL} of one process's render (max abs err "
+        f"{info['render_err']:.3e}), mass ratio {info['mass_ratio']:.6f}, "
+        f"overflow 0")
+    log(f"phase 8: launches on the sharded path, summed over ranks: {total}; "
+        f"{time.perf_counter() - t_phase:.1f} s of command time")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline-deposit", metavar="PATH",
@@ -1463,6 +1809,9 @@ def main() -> int:
                  else None)
     knn_kernels, harness = knn_phases(dev, gen, smi, base_topk, base_dist)
     kernels += knn_kernels
+    sharded = sharded_phase(tmp.name, harness, smi)
+    for row in kernels:
+        row["launches"] += sharded[row["name"]]
     cancel_phase(path, renderer, ref6, harness, smi)
     del ref6, harness
     trace_phase(path, renderer, smi)

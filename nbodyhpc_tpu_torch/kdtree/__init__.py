@@ -21,6 +21,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import default_device
 from ..core.cells import build_cell_list
@@ -31,6 +32,13 @@ __all__ = ["KDTree", "QueryStatistics", "ENGINES"]
 
 ENGINES = ("auto", "ladder", "kernel")
 _USE_KERNEL = {"auto": "auto", "ladder": "never", "kernel": "force"}
+
+
+def _group_size() -> int:
+    """Ranks of the initialised ``torch.distributed`` world (1 without)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        return 1
+    return dist.get_world_size()
 
 
 class KDTree:
@@ -98,8 +106,14 @@ class KDTree:
         and results reshaped to (..., k); distances are float32, ascending,
         with the sqrt applied; indices are uint32. ``k <= 0`` raises.
         Missing neighbours (k > n) get distance ``inf`` and index ``n``.
-        ``workers`` is accepted; with one device every batch already runs
-        data-parallel on it, so it changes nothing.
+        ``workers`` maps the reference's thread fan-out (pybind.cpp:164-172)
+        to ranks: when a ``torch.distributed`` process group of more than
+        one rank is initialised, ``workers != 1`` shards the queries over
+        its ranks (:func:`..parallel.sharded.knn_query_sharded`, each rank
+        on this tree's device). That is a collective: every rank must call
+        it, with the same tree and queries, and every rank gets the whole
+        answer. Without such a group it changes nothing (one device already
+        answers a batch data-parallel).
         """
         if len(kwargs) > 0:
             warnings.warn("Unrecognized keyword arguments: {}".format(kwargs))
@@ -112,9 +126,15 @@ class KDTree:
             points = points.reshape((-1, shape[-1]))
         if points.shape[-1] != 3:
             raise ValueError("query points must have 3 coordinates")
-        res = _knn.cell_knn_query(self._tree, points, k)
-        distances = res.distances.cpu().numpy()
-        indices = res.indices.cpu().numpy().astype(np.uint32)
+        if workers != 1 and points.shape[0] > 0 and _group_size() > 1:
+            from ..parallel.sharded import knn_query_sharded
+
+            distances, indices = knn_query_sharded(self._tree, points, k)
+        else:
+            res = _knn.cell_knn_query(self._tree, points, k)
+            distances = res.distances.cpu().numpy()
+            indices = res.indices.cpu().numpy()
+        indices = indices.astype(np.uint32)
         if shape is not None:
             distances = distances.reshape(shape[:-1] + (k,))
             indices = indices.reshape(shape[:-1] + (k,))

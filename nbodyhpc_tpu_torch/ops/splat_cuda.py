@@ -515,7 +515,7 @@ def bucket_stream(part: FusedPartition, bi: int):
 
 
 def splat_volume(positions, weights, radii, pixels_per_unit: float, grid,
-                 subsample: int = 4) -> torch.Tensor:
+                 subsample: int = 4, vol0=None) -> torch.Tensor:
     """Render a 3D density field with the tile engine.
 
     Same semantics as :func:`.splat.splat_volume_oracle` (non-periodic or
@@ -523,7 +523,9 @@ def splat_volume(positions, weights, radii, pixels_per_unit: float, grid,
     (``weights``/``radii`` then unused) to keep the partition sort out of
     repeated renders. Returns the (gx, gy, gz) float32 field on the
     particles' device: the kernels on a CUDA device, their plain versions
-    on the CPU.
+    on the CPU. With ``vol0`` (a contiguous float32 (gx, gy, gz) tensor on
+    that device) the particles are added onto it, in place where the dense
+    pass allows (see :func:`.splat_dense.splat_volume_dense`).
     """
     grid3 = tuple(int(v) for v in grid)
     if isinstance(positions, FusedPartition):
@@ -533,7 +535,8 @@ def splat_volume(positions, weights, radii, pixels_per_unit: float, grid,
                              f"render asked for {grid3}")
     else:
         part = prepartition(positions, weights, radii, pixels_per_unit, grid3)
-    vol = torch.zeros(grid3, dtype=torch.float32, device=part.pos_px.device)
+    vol = (torch.zeros(grid3, dtype=torch.float32, device=part.pos_px.device)
+           if vol0 is None else vol0)
     for bi, geom in enumerate(BUCKETS):
         stream = bucket_stream(part, bi)
         if stream is not None:
