@@ -399,12 +399,14 @@ def brute_knn(cl, queries, k: int, qchunk: int = 512, block: int = 1 << 18):
     return torch.cat(out_d), torch.cat(out_s)
 
 
-def check_sample(name: str, cl, queries, d, idx, k: int) -> int:
+def check_sample(name: str, cl, queries, d, idx, k: int,
+                 tol: float = 0.0) -> int:
     """Fails unless (d, idx) of ``queries`` equal the plain brute force:
-    distances bit-equal, indices equal. The k nearest must be unique (no
-    tie at the k-th distance); rows with equal distances inside the k keep
-    the engine's candidate order, so there the index sets are compared.
-    Returns the number of such rows."""
+    distances bit-equal (with ``tol``: within one ulp plus ``tol``), indices
+    equal. The k nearest must be unique (no tie at the k-th distance); rows
+    with equal distances inside the k (with ``tol``: closer than twice the
+    tolerance) keep the engine's candidate order, so there the index sets
+    are compared. Returns the number of such rows."""
     from nbodyhpc_tpu_torch.ops.metrics import sqrt_f32
 
     d2b, sb = brute_knn(cl, queries, k)
@@ -414,11 +416,16 @@ def check_sample(name: str, cl, queries, d, idx, k: int) -> int:
              f"distance; the k nearest are not unique")
     want_d = sqrt_f32(d2b[:, :k])
     want_i = cl.index[sb[:, :k]].to(idx.dtype)
-    if not bits_equal(d, want_d):
+    if tol:
+        slack = ulp_tolerance(want_d, tol)
+        bad = int(((d - want_d).abs() > slack).any(1).sum())
+        tied = ((want_d[:, 1:] - want_d[:, :-1]) <= 2 * slack[:, 1:]).any(1)
+    else:
         bad = int((d.view(torch.int32) != want_d.view(torch.int32)).any(1)
                   .sum())
+        tied = (d2b[:, 1:k] == d2b[:, :k - 1]).any(1)
+    if bad:
         fail(f"{name}: distances of {bad} sample rows differ from brute force")
-    tied = (d2b[:, 1:k] == d2b[:, :k - 1]).any(1)
     same = (idx == want_i).all(1)
     same_set = (torch.sort(idx, 1).values == torch.sort(want_i, 1).values
                 ).all(1)
@@ -426,6 +433,79 @@ def check_sample(name: str, cl, queries, d, idx, k: int) -> int:
         fail(f"{name}: indices of {int((~same).sum())} sample rows differ "
              f"from brute force")
     return int(tied.sum())
+
+
+def ulp_tolerance(want: torch.Tensor, tol: float) -> torch.Tensor:
+    """One float32 ulp of each finite ``want`` plus ``tol``."""
+    up = torch.nextafter(want, want.new_tensor(float("inf")))
+    return torch.where(torch.isfinite(want), up - want + tol, 0.0)
+
+
+# the slab-sharded tree's distances against the single tree's: its
+# slab-local z rounds a point's coordinate once and a query's twice (moved
+# to the slab, wrapped about its centre), each by up to 2^-24 of the
+# coordinate's size, where the single tree rounds q - p once; so one ulp
+# of the distance plus 2^-22 of the box (the unit box here)
+TREE_TOL = 2.0 ** -22
+
+
+def tree_gate(name: str, d, i, d_ref, i_ref, pts, q, box,
+              exact: bool = False) -> dict:
+    """Hold the sharded tree's (d, i) to the single process's (d_ref,
+    i_ref) for queries ``q`` on points ``pts`` (tensors on the card; ``box``
+    the single tree's period or None): distances within one ulp plus
+    :data:`TREE_TOL`; indices equal, except rows where the sharded answer's
+    points lie, by the single tree's own distance, within twice that of
+    the reference's (two candidates that close at one place of the k).
+    With ``exact`` (the periodic tree at one slab: its z0 is 0 and it bins
+    z with the box, so no slab-local coordinate rounds) distances are
+    bit-equal and indices equal. Returns the counts it logs."""
+    from nbodyhpc_tpu_torch.ops.metrics import sq_dist, sqrt_f32
+
+    i = i.to(torch.int64)
+    i_ref = i_ref.to(torch.int64)
+    if exact:
+        rows_d = int((d.view(torch.int32) != d_ref.view(torch.int32))
+                     .any(1).sum())
+        rows_i = int((i != i_ref).any(1).sum())
+        if rows_d or rows_i:
+            fail(f"{name}: {rows_d} rows' distances and {rows_i} rows' "
+                 f"indices differ from the single process's, which they "
+                 f"equal at one slab")
+    if not torch.equal(torch.isfinite(d), torch.isfinite(d_ref)):
+        fail(f"{name}: other neighbours are missing than in the single "
+             f"process's answer")
+    slack = ulp_tolerance(d_ref, TREE_TOL)
+    diff = torch.where(torch.isfinite(d_ref), (d - d_ref).abs(), 0.0)
+    if bool((diff > slack).any()):
+        fail(f"{name}: {int((diff > slack).any(1).sum())} rows' distances "
+             f"differ from the single process's by more than one ulp + "
+             f"{TREE_TOL:.3g} (max {float(diff.max()):.3e})")
+    rows = torch.nonzero((i != i_ref).any(1)).squeeze(1)
+    if rows.numel():
+        p = pts[i[rows].clamp_max(pts.shape[0] - 1)]
+        qr = q[rows]
+        d_re = sqrt_f32(sq_dist([qr[:, a, None] for a in range(3)],
+                                p[..., 0], p[..., 1], p[..., 2],
+                                None if box is None else (box,) * 3))
+        d_re = torch.where(i[rows] < pts.shape[0], d_re, float("inf"))
+        gap = torch.where(torch.isfinite(d_ref[rows]),
+                          (d_re - d_ref[rows]).abs(), 0.0)
+        if bool((gap > 2 * slack[rows]).any()):
+            fail(f"{name}: indices of {rows.numel()} rows differ from the "
+                 f"single process's, not by near ties")
+    ulps = (d.view(torch.int32).long() - d_ref.view(torch.int32).long()
+            ).abs()
+    ulps = torch.where(torch.isfinite(d_ref), ulps, 0)
+    return {"rows_d_differ": int((ulps > 0).any(1).sum()),
+            "max_ulps": int(ulps.max()), "max_abs": float(diff.max()),
+            "rows_i_near_tie": int(rows.numel())}
+
+
+def _gate_log(g: dict) -> str:
+    return (f"{g['rows_d_differ']} rows with a distance not bit-equal (max "
+            f"{g['max_ulps']} ulps, {g['max_abs']:.3e}), "
+            f"{g['rows_i_near_tie']} rows with other indices at near ties")
 
 
 def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
@@ -1162,7 +1242,9 @@ SHARDED_SPEC = {
     "8b": {"backend": "gloo", "nprocs": 2, "device": "cuda:0",
            "render_n": 256**3, "render_grid": 1024,
            "knn_n": KNN_N, "knn_q": KNN_Q, "knn2_n": KNN2_N,
-           "knn2_q": KNN2_Q, "timeout": 420},
+           "knn2_q": KNN2_Q, "tree_q0": 50_000,
+           # 420 s before the sharded tree's build and three queries
+           "timeout": 480},
 }
 # the kNN-CDF of phase 8b: k up to the harness's, radii past its 16th
 # neighbour distance (~0.0073 at 1e7 points)
@@ -1221,6 +1303,10 @@ def sharded_rank(rank: int, phase: str, spec: dict, tmp: str) -> None:
         render_points_volume_sharded,
     )
     from nbodyhpc_tpu_torch.parallel.stats import knn_cdf_sharded
+    from nbodyhpc_tpu_torch.parallel.tree_sharded import (
+        build_tree_sharded,
+        knn_query_tree_sharded,
+    )
     from nbodyhpc_tpu_torch.rasterizer import Container, get_point_renderer
 
     # the group's sockets stay on this machine
@@ -1283,6 +1369,40 @@ def sharded_rank(rank: int, phase: str, spec: dict, tmp: str) -> None:
                 "cdf", lambda: knn_cdf_sharded(tree._tree, CDF_K, radii,
                                                n_queries=spec["knn_q"],
                                                mesh=mesh, seed=0))
+        # the slab-sharded tree on the same points and queries, tensors in
+        # and out (8a: the periodic tree and the open one, each held to the
+        # single process here; 8b: the periodic tree, held to kNN-3 by the
+        # parent, and hops=0 on the first queries)
+        tree_runs = [("tree", 1.0)]
+        if phase == "8a":
+            tree_runs.append(("tree_open", None))
+        for name, box in tree_runs:
+            st = call(name + "_build", lambda: build_tree_sharded(
+                pts, boxsize=box, mesh=mesh))
+            td, ti, tov = call(name, lambda: knn_query_tree_sharded(
+                st, q, KNN_K))
+            info[name] = {"overflow": tov,
+                          "stats": knn_query_tree_sharded.stats,
+                          "counts": st.counts.tolist(),
+                          "max_cell_count": st.max_cell_count}
+            if phase == "8a":
+                one = tree if box is not None else KDTree(pts)
+                rd, ri = (torch.from_numpy(a).to(dev)
+                          for a in one.query(q_np, k=KNN_K))
+                info[name]["gate"] = tree_gate(
+                    f"phase 8a {name}", td, ti, rd, ri, pts, q, box,
+                    exact=box is not None)
+                del one, rd, ri
+            else:
+                arrays[name + "_d"] = td.cpu().numpy()
+                arrays[name + "_i"] = ti.cpu().numpy()
+                n0 = spec["tree_q0"]
+                d0, i0, ov0 = knn_query_tree_sharded(st, q[:n0], KNN_K,
+                                                     hops=0)
+                arrays[name + "0_d"] = d0.cpu().numpy()
+                arrays[name + "0_i"] = i0.cpu().numpy()
+                info[name]["overflow0"] = ov0
+            del st, td, ti
         del tree, pts, q
         torch.cuda.empty_cache()
 
@@ -1370,6 +1490,21 @@ def _render_log(info: dict, g: int, n: int) -> str:
             f"{_nonzero(info['launches']['render'])}")
 
 
+def _tree_log(info: dict, name: str) -> str:
+    t, st = info[name], info[name]["stats"]
+    rounds = "; ".join(
+        f"hop {r['hop']}{'+' if r['direction'] > 0 else '-'} sent "
+        f"{r['sent']}, received {r['received']}, over cap {r['over_cap']}"
+        for r in st["rounds"]) or "no hop rounds"
+    return (f"build {info['ms'][name + '_build']:.3f} ms (slab counts "
+            f"{t['counts']}, fullest cell {t['max_cell_count']}); query "
+            f"{info['ms'][name]:.3f} ms, of it local answers "
+            f"{st['local_s'] * 1e3:.3f} ms and exchanges "
+            f"{st['exchange_s'] * 1e3:.3f} ms ({rounds}); {st['escalated']} "
+            f"rows past the first rung, {st['brute']} at the brute backstop; "
+            f"overflow {t['overflow']}; launches {info['launches'][name]}")
+
+
 def sharded_phase(tmp: str, harness, smi: str,
                   spec: dict = SHARDED_SPEC) -> dict:
     """Phase 8: the sharded path on spawned ranks. 8a: one NCCL rank on
@@ -1420,6 +1555,14 @@ def sharded_phase(tmp: str, harness, smi: str,
         + f"; the field within rtol {RTOL} atol {ATOL} of one process's "
         f"(max abs err {info['render_err']:.3e}), mass ratio "
         f"{info['mass_ratio']:.6f}")
+    for name, what in (("tree", "periodic"), ("tree_open", "open")):
+        if info[name]["overflow"] != 0:
+            fail(f"phase 8a: the {what} sharded tree's overflow is "
+                 f"{info[name]['overflow']}")
+        log(f"phase 8a ({smi}): {what} slab-sharded tree, {a['knn_q']} "
+            f"self-queries k={KNN_K} on {a['knn_n']} points, tensors in and "
+            f"out: " + _tree_log(info, name) + "; against the single "
+            f"process's query: " + _gate_log(info[name]["gate"]))
 
     b = spec["8b"]
     ranks = spawn_ranks("8b", b, tmp)
@@ -1458,6 +1601,44 @@ def sharded_phase(tmp: str, harness, smi: str,
         fail(f"phase 8b: knn_query_sharded at k={KNN2_K} differs from the "
              f"single process's query")
     del pts2, q2, d2, i2
+
+    # the slab-sharded tree, default hops, against kNN-3's answer; hops=0
+    # on the first queries: rows off the exact answer within the overflow
+    dev = queries.device
+    for r, (_, info_r) in enumerate(ranks):
+        if (info_r["tree"]["overflow"] != 0 or info_r["tree"]["overflow0"]
+                != info["tree"]["overflow0"]):
+            fail(f"phase 8b: rank {r}'s sharded tree overflow is "
+                 f"{info_r['tree']['overflow']}, at hops=0 "
+                 f"{info_r['tree']['overflow0']}")
+    td = torch.from_numpy(arrays["tree_d"]).to(dev)
+    ti = torch.from_numpy(arrays["tree_i"]).to(dev)
+    pts, _ = knn_inputs(b["knn_n"], b["knn_q"], SEED + 10, dev, False)
+    gate = tree_gate("phase 8b sharded tree", td, ti, d, idx, pts, queries,
+                     1.0)
+    del pts
+    tied_t = check_sample("phase 8b sharded tree", tree._tree,
+                          queries[:1000], td[:1000], ti[:1000], KNN_K,
+                          tol=TREE_TOL)
+    n0, ov0 = b["tree_q0"], info["tree"]["overflow0"]
+    d0 = torch.from_numpy(arrays["tree0_d"]).to(dev)
+    i0 = torch.from_numpy(arrays["tree0_i"]).to(dev)
+    off = ((i0 != idx[:n0]).any(1)
+           | ((d0 - d[:n0]).abs() > ulp_tolerance(d[:n0], TREE_TOL)).any(1))
+    off = int(off.sum())
+    if not 0 < ov0 or off > ov0:
+        fail(f"phase 8b: hops=0 on {n0} queries: {off} rows off the exact "
+             f"answer, overflow {ov0}")
+    del td, ti, d0, i0
+    for r, (_, info_r) in enumerate(ranks):
+        log(f"phase 8b ({smi}): rank {r} slab-sharded tree, {b['knn_q']} "
+            f"self-queries k={KNN_K} on {b['knn_n']} points: "
+            + _tree_log(info_r, "tree"))
+    log(f"phase 8b: the sharded tree against kNN-3's answer: "
+        + _gate_log(gate) + f"; a 1000-query sample within one ulp + "
+        f"{TREE_TOL:.3g} of brute force ({tied_t} rows with near ties "
+        f"inside the k); hops=0 on {n0} queries: overflow {ov0}, {off} rows "
+        f"off the exact answer")
     radii = np.linspace(0.0, CDF_RMAX, CDF_NR).astype(np.float32)
     cq, qloc = cdf_queries(tree._tree, b["knn_q"], b["nprocs"], seed=0)
     dc, _ = tree.query(cq, k=max(CDF_K))

@@ -2,11 +2,11 @@
 
 This system has no learned weights: its state is the particle set and its
 fused (radius class, tile) partition for the render, and the sorted cell
-list for k-NN. These helpers take that state as numpy arrays — as
-:mod:`nbodyhpc_tpu` produces it — and put it on a torch device, so a test
-can feed the JAX package's exact sorted state into the port's engine and
-check the engine apart from the sort or the build. Nothing here imports
-JAX.
+list (single or slab-sharded) for k-NN. These helpers take that state as
+numpy arrays — as :mod:`nbodyhpc_tpu` produces it — and put it on a torch
+device, so a test can feed the JAX package's exact sorted state into the
+port's engine and check the engine apart from the sort or the build.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -64,4 +64,31 @@ def cell_list_from_jax(xyz, index, offsets, dims, lo, cell_size,
         inv_cell_size=arr(inv_cell_size, np.float32), n=int(n),
         periodic=bool(periodic), boxsize=arr(boxsize, np.float32),
         max_cell_count=int(max_cell_count),
+    )
+
+
+def sharded_tree_from_jax(xyz, index, offsets, counts, dims_loc, lo,
+                          cell_size, slab_depth, periodic, boxsize, n,
+                          max_cell_count, mesh):
+    """Rank ``mesh.rank``'s :class:`ShardedTree` from
+    the fields of a JAX ``nbodyhpc_tpu.parallel.tree_sharded.ShardedTree``
+    (arrays as numpy): ``xyz``, ``index`` and ``offsets`` are this rank's
+    rows of the JAX tree's, the rest its host fields. ``index`` (uint32 in
+    JAX) becomes int32; the tensors go to ``mesh.device``."""
+    from .parallel.tree_sharded import ShardedTree
+
+    dev = mesh.device
+    return ShardedTree(
+        xyz=as_f32(np.asarray(xyz), dev),
+        index=torch.as_tensor(np.asarray(index).astype(np.int32),
+                              device=dev),
+        offsets=torch.as_tensor(np.asarray(offsets, np.int32), device=dev),
+        counts=np.asarray(counts, np.int64),
+        dims_loc=tuple(int(v) for v in dims_loc),
+        lo=tuple(float(v) for v in lo),
+        cell_size=tuple(float(v) for v in cell_size),
+        slab_depth=float(slab_depth), periodic=bool(periodic),
+        boxsize=None if boxsize is None else tuple(float(v)
+                                                    for v in boxsize),
+        n=int(n), max_cell_count=int(max_cell_count), mesh=mesh,
     )

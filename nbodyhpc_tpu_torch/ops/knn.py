@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from ..core.cells import CellList
-from .metrics import sq_dist, sqrt_f32
+from .metrics import fma_f32, sq_dist, sqrt_f32, wrap_min_image
 
 #: the smallest batch the "auto" route sends to the candidate kernels
 KERNEL_MIN_QUERIES = 8192
@@ -133,35 +133,39 @@ def _streaming_brute_pass(xyz, n: int, queries_w, k: int, box,
 # ---------------------------------------------------------------------------
 
 
-def cube_window(tree: CellList, qcell, rc, ccap: int):
+def cube_window(tree: CellList, qcell, rc, ccap: int, periodic=None):
     """Candidate slots of each query's cell cube: per-dimension Chebyshev
     cell radii ``rc`` around ``qcell``, offsets in x-major order, each cell
     one contiguous slice of the sorted storage read through a ``ccap``-wide
-    window. A periodic cube wraps and, where it spans a whole dimension,
-    keeps only the first ``dims`` offsets so no cell appears twice; a plain
-    cube drops cells off the grid. Returns (valid [Q, M], slot [Q, M, ccap],
-    valid_c [Q, M, ccap], taken [Q, M] slots of each cell inside the window,
-    overflow [Q] some cell is fuller than its window)."""
+    window. Along a periodic axis the cube wraps and, where it spans the
+    whole axis, keeps only the first ``dims`` offsets so no cell appears
+    twice; along a plain axis it drops cells off the grid. ``periodic``
+    gives each axis's kind (default: the tree's flag on every axis).
+    Returns (valid [Q, M], slot [Q, M, ccap], valid_c [Q, M, ccap], taken
+    [Q, M] slots of each cell inside the window, overflow [Q] some cell is
+    fuller than its window)."""
     dims = np.asarray(tree.dims, np.int64)
     rc = np.asarray(rc, np.int64)
+    if periodic is None:
+        periodic = (tree.periodic,) * 3
     dev = qcell.device
     axes = [np.arange(-c, c + 1) for c in rc]
     M_off = np.stack(np.meshgrid(*axes, indexing="ij"), axis=-1).reshape(-1, 3)
     Q, M = qcell.shape[0], M_off.shape[0]
     offs_t = torch.as_tensor(M_off, device=dev)
     ccd = []
-    if tree.periodic:
-        static_valid = np.all((M_off + rc) < dims, axis=1)
-        for dim in range(3):
+    static_valid = np.ones(M, dtype=bool)
+    valid = torch.ones((Q, M), dtype=torch.bool, device=dev)
+    for dim in range(3):
+        if periodic[dim]:
+            static_valid &= (M_off[:, dim] + rc[dim]) < dims[dim]
             c = qcell[:, dim:dim + 1] + int(dims[dim]) + offs_t[None, :, dim]
             ccd.append(torch.remainder(c, int(dims[dim])))
-        valid = torch.as_tensor(static_valid, device=dev)[None, :].expand(Q, M)
-    else:
-        valid = torch.ones((Q, M), dtype=torch.bool, device=dev)
-        for dim in range(3):
+        else:
             c = qcell[:, dim:dim + 1] + offs_t[None, :, dim]
             valid = valid & (c >= 0) & (c < int(dims[dim]))
             ccd.append(c.clamp(0, int(dims[dim]) - 1))
+    valid = valid & torch.as_tensor(static_valid, device=dev)[None, :]
 
     ids = (ccd[0] * int(dims[1]) + ccd[1]) * int(dims[2]) + ccd[2]
     offsets = tree.offsets.long()
@@ -183,13 +187,21 @@ def cube_window(tree: CellList, qcell, rc, ccap: int):
     return valid, slot, valid_c, taken, overflow
 
 
-def cube_bound(tree: CellList, queries_w, qcell, r: int, ndim: int = 3):
+def cube_bound(tree: CellList, queries_w, qcell, r: int, ndim: int = 3,
+               periodic=None, wrap=None):
     """(db [Q], covered [Q]): the distance from each query to the nearest
     cell outside its cube of Chebyshev cell radius ``r``, over the first
     ``ndim`` dimensions, in float32; and whether the cube holds every cell
     of those dimensions. A plain dimension is fully scanned only where the
-    clipped interval covers [0, C-1], decided per query."""
+    clipped interval covers [0, C-1], decided per query. ``periodic`` gives
+    each axis's kind (default: the tree's flag on every axis). ``wrap``,
+    the metric period of each axis, makes a plain axis's bound the
+    min-image distance to its unscanned cells, with each face one fused
+    multiply-add: the slab tree's z, whose cells are clipped while a
+    query may lie past them, as the JAX slab tree's bound compiles."""
     dims, h, lo = tree.dims, tree.cell_size, tree.lo
+    if periodic is None:
+        periodic = (tree.periodic,) * 3
     Q = queries_w.shape[0]
     dev = queries_w.device
     side = 2 * r + 1
@@ -200,7 +212,7 @@ def cube_bound(tree: CellList, queries_w, qcell, r: int, ndim: int = 3):
         hd = float(h[dim])
         lod = float(lo[dim])
         qd = queries_w[:, dim]
-        if tree.periodic:
+        if periodic[dim]:
             if side >= C:
                 continue  # fully wrapped: no bound from this dimension
             covered = torch.zeros_like(covered)
@@ -210,34 +222,76 @@ def cube_bound(tree: CellList, queries_w, qcell, r: int, ndim: int = 3):
             a = torch.clamp_min(qcell[:, dim] - r, 0)
             b = torch.clamp_max(qcell[:, dim] + r, C - 1)
             covered = covered & (a == 0) & (b == C - 1)
-            dlo = torch.where(a > 0, qd - (a.to(torch.float32) * hd + lod),
-                              float("inf"))
-            dhi = torch.where(
-                b < C - 1, ((b + 1).to(torch.float32) * hd + lod) - qd,
-                float("inf"))
+            if wrap is None:
+                dlo = torch.where(a > 0,
+                                  qd - (a.to(torch.float32) * hd + lod),
+                                  float("inf"))
+                dhi = torch.where(
+                    b < C - 1, ((b + 1).to(torch.float32) * hd + lod) - qd,
+                    float("inf"))
+            else:
+                # unscanned low cells [0, a) span [lo, lo + a*h], high
+                # cells (b, C) span [lo + (b+1)*h, lo + C*h]
+                dlo = torch.where(
+                    a > 0, _interval_dist(qd, _f32(lod),
+                                          _fma(a, hd, lod), wrap[dim]),
+                    float("inf"))
+                dhi = torch.where(
+                    b < C - 1, _interval_dist(qd, _fma(b + 1, hd, lod),
+                                              _f32(lod + C * hd), wrap[dim]),
+                    float("inf"))
         db = torch.minimum(db, torch.clamp_min(torch.minimum(dlo, dhi), 0.0))
     return db, covered
+
+
+def _f32(x) -> float:
+    """``x`` rounded to float32, as a Python float: how a Python constant
+    enters the JAX package's float32 arithmetic (a weak type)."""
+    return float(np.float32(x))
+
+
+def _fma(i: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """``float32(i) * b + c`` with float32 constants, rounded once."""
+    a = i.to(torch.float32)
+    return fma_f32(a, torch.full_like(a, _f32(b)), torch.full_like(a, _f32(c)))
+
+
+def _interval_dist(qv, a, b, L):
+    """Min-image distance from ``qv`` to the interval [a, b] on a torus of
+    period ``L`` (a huge ``L``: the line)."""
+    mid = (a + b) * 0.5
+    half = (b - a) * 0.5
+    return torch.clamp_min(wrap_min_image(qv - mid, L).abs() - half, 0.0)
 
 
 def query_cells(tree: CellList, queries: torch.Tensor):
     """(wrapped queries [Q, 3], cell coordinates [Q, 3] int64): periodic
     queries wrap by ``L = dims * h`` in float32 (not ``boxsize``), then
-    ``floor((qw - lo) * (1/h))`` with ``1/h`` divided in float32."""
+    :func:`cell_coords` with ``1/h`` divided in float32."""
     dev = queries.device
-    lo = torch.as_tensor(np.asarray(tree.lo, np.float32), device=dev)
     h = torch.as_tensor(np.asarray(tree.cell_size, np.float32), device=dev)
-    dims = torch.as_tensor(np.asarray(tree.dims, np.int64), device=dev)
     if tree.periodic:
+        dims = torch.as_tensor(np.asarray(tree.dims, np.int64), device=dev)
         L = dims.to(torch.float32) * h
         qw = queries - L * torch.floor(queries / L)
     else:
         qw = queries
-    qcell = torch.floor((qw - lo) * (1.0 / h)).to(torch.int64)
-    if tree.periodic:
-        qcell = torch.remainder(qcell, dims)
-    else:
-        qcell = torch.minimum(torch.clamp_min(qcell, 0), dims - 1)
-    return qw, qcell
+    return qw, cell_coords(qw, tree.lo, 1.0 / h, tree.dims,
+                           (tree.periodic,) * 3)
+
+
+def cell_coords(q: torch.Tensor, lo, inv_h, dims, periodic):
+    """Cell coordinates [Q, 3] int64 of the points ``q``: ``floor((q - lo)
+    * inv_h)`` in float32 (``lo`` and ``inv_h`` rounded to float32),
+    wrapped along each ``periodic`` axis and clipped along the others."""
+    dev = q.device
+    lo = torch.as_tensor(lo, dtype=torch.float32, device=dev)
+    inv_h = torch.as_tensor(inv_h, dtype=torch.float32, device=dev)
+    dims = torch.as_tensor(np.asarray(dims, np.int64), device=dev)
+    per = torch.as_tensor(np.asarray(periodic, bool), device=dev)
+    c = torch.floor((q - lo) * inv_h).to(torch.int64)
+    return torch.where(per, torch.remainder(c, dims),
+                       torch.minimum(torch.clamp_min(c, 0), dims - 1))
 
 
 def _cube_pass(tree: CellList, queries_w, qcell, k: int, r: int, budget: int,

@@ -210,8 +210,11 @@ def test_parallel_and_chip_smoke_import_no_jax():
     code = ("import sys, nbodyhpc_tpu_torch.parallel, "
             "nbodyhpc_tpu_torch.parallel.mesh, "
             "nbodyhpc_tpu_torch.parallel.sharded, "
-            "nbodyhpc_tpu_torch.parallel.stats, chip_smoke; "
-            "sys.path.insert(0, 'tests'); import torch_sharded_ranks; "
+            "nbodyhpc_tpu_torch.parallel.stats, "
+            "nbodyhpc_tpu_torch.parallel.tree_sharded, "
+            "nbodyhpc_tpu_torch.interop, chip_smoke; "
+            "sys.path.insert(0, 'tests'); import torch_sharded_ranks, "
+            "torch_tree_sharded_ranks; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'nbodyhpc_tpu.'))]; "
             "assert not bad, bad")

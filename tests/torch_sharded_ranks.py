@@ -133,13 +133,14 @@ def run(rank, nd, out, init_file, backend="gloo", device="cpu"):
         dist.destroy_process_group()
 
 
-def spawn(out, nd, backend="gloo", device="cpu", timeout=300):
-    """Run :func:`run` on ``nd`` spawned ranks writing to ``out`` (a
+def spawn(out, nd, backend="gloo", device="cpu", timeout=300, fn=None):
+    """Run ``fn`` (default :func:`run`; another module's rank body with its
+    arguments) on ``nd`` spawned ranks writing to ``out`` (a
     ``pathlib.Path``) and return every rank's answers, in rank order.
     Raises when a rank fails, or when the ranks do not all finish within
     ``timeout`` seconds (a hung collective)."""
     ctx = mp.start_processes(
-        run, args=(nd, str(out), str(out / "init"), backend, device),
+        fn or run, args=(nd, str(out), str(out / "init"), backend, device),
         nprocs=nd, join=False, start_method="spawn")
     deadline = time.monotonic() + timeout
     try:
