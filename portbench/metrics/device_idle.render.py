@@ -1,0 +1,8 @@
+"""device_idle.render: the share of the traced window in which no kernel, copy
+or fill ran on the device, in percent, in cells whose steps are render calls."""
+
+
+def read(rec):
+    if not rec.device or not rec.spans.get("render"):
+        return None
+    return 100 * (1 - rec.busy_s() / rec.window_s())
