@@ -61,6 +61,7 @@ from unittest import mock
 
 import torch
 
+from nbodyhpc_tpu_torch.utils import profiling
 from nbodyhpc_tpu_torch.utils.profiling import device_busy_ms, synced
 
 SEED = 2024
@@ -775,9 +776,9 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
 
     # ---- kNN-3: the main path at full size ---------------------------------
     tree.query_device(queries, k=KNN_K)  # warm-up
-    kc.knn_topk.launches = kc.knn_select.launches = kc.knn_dist.launches = 0
+    profiling.reset()
     (d, idx), qd_ms = synced(lambda: tree.query_device(queries, k=KNN_K))
-    b3_launches = kc.knn_topk.launches
+    b3_launches = _launches()["knn_topk"]
     ladder_q = kd.query_blocks_device.ladder_queries
     if b3_launches == 0:
         fail("kNN-3: B3 was not launched on the main path")
@@ -862,14 +863,15 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
                 rows.numel())
 
     tree2.query_device(queries2, k=k2)  # warm-up
-    kc.knn_topk.launches = kc.knn_select.launches = kc.knn_dist.launches = 0
+    profiling.reset()
     (d4, i4), k4_ms = synced(lambda: tree2.query_device(queries2, k=k2))
-    sel_launches = kc.knn_select.launches
+    took = _launches()
+    sel_launches = took["knn_select"]
     ladder4 = kd.query_blocks_device.ladder_queries
-    if sel_launches != 1 or kc.knn_dist.launches or kc.knn_topk.launches:
+    if sel_launches != 1 or took["knn_dist"] or took["knn_topk"]:
         fail(f"kNN-4: k={k2} launched (knn_select, knn_dist, knn_topk) = "
-             f"({sel_launches}, {kc.knn_dist.launches}, "
-             f"{kc.knn_topk.launches}), expected (1, 0, 0)")
+             f"({sel_launches}, {took['knn_dist']}, {took['knn_topk']}), "
+             f"expected (1, 0, 0)")
     if ladder4 >= q2 // 2:
         fail(f"kNN-4: {ladder4} of {q2} queries finished on the ladder; the "
              f"kernel route certified too few")
@@ -898,14 +900,15 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
     if k5 <= kc.SELECT_MAX:
         fail(f"kNN-4: k={k5} does not exceed the selection sink's capacity")
     tree2.query_device(q5, k=k5)  # warm-up
-    kc.knn_topk.launches = kc.knn_select.launches = kc.knn_dist.launches = 0
+    profiling.reset()
     (d5, i5), k5_ms = synced(lambda: tree2.query_device(q5, k=k5))
-    b4_launches = kc.knn_dist.launches
+    took = _launches()
+    b4_launches = took["knn_dist"]
     ladder5 = kd.query_blocks_device.ladder_queries
-    if b4_launches == 0 or kc.knn_select.launches or kc.knn_topk.launches:
+    if b4_launches == 0 or took["knn_select"] or took["knn_topk"]:
         fail(f"kNN-4: k={k5} launched (knn_select, knn_dist, knn_topk) = "
-             f"({kc.knn_select.launches}, {b4_launches}, "
-             f"{kc.knn_topk.launches}), expected knn_dist alone")
+             f"({took['knn_select']}, {b4_launches}, {took['knn_topk']}), "
+             f"expected knn_dist alone")
     if ladder5 >= q5.shape[0] // 2:
         fail(f"kNN-4: {ladder5} of {q5.shape[0]} queries at k={k5} finished "
              f"on the ladder; the kernel route certified too few")
@@ -1031,7 +1034,6 @@ def file_phase(tmp: str, pos, w, r, grid: int, smi: str):
 
     from nbodyhpc_tpu_torch import runtime
     from nbodyhpc_tpu_torch.cli import rasterizer_demo as demo
-    from nbodyhpc_tpu_torch.ops import splat_cuda as sc
     from nbodyhpc_tpu_torch.rasterizer import Container, get_point_renderer
 
     t_phase = time.perf_counter()
@@ -1060,11 +1062,11 @@ def file_phase(tmp: str, pos, w, r, grid: int, smi: str):
         f"(a fresh buffer, readinto) {records_s:.3f} s")
 
     # the demo's bulk path, as a user runs it
-    sc.align.launches = sc.deposit.launches = 0
+    profiling.reset()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = demo.main(["--file", path, "--grid", str(grid), "--periodic"])
-    launches = (sc.align.launches, sc.deposit.launches)
+    launches = tuple(_launches()[k] for k in ("splat_align", "splat_deposit"))
     ratio = RATIO_LINE.search(out.getvalue())
     if rc != 0 or ratio is None:
         fail(f"phase 6: the demo returned {rc}: {out.getvalue()}")
@@ -1123,7 +1125,6 @@ def trace_phase(path: str, renderer, smi: str):
     then the same render's device busy time. After a trace session later
     launches were slower on this card, so no timed phase follows it."""
     from nbodyhpc_tpu_torch import runtime
-    from nbodyhpc_tpu_torch.utils import profiling
 
     t_phase = time.perf_counter()
     back = runtime.load_particles(path)
@@ -1178,7 +1179,7 @@ def cancel_phase(path: str, renderer, ref_host, harness, smi: str):
     next call must be right: kNN-3's answer bit for bit through the kernel
     route, phase 6's field within rtol/atol with no reader thread left."""
     from nbodyhpc_tpu_torch.cli import rasterizer_demo as demo
-    from nbodyhpc_tpu_torch.ops import knn, knn_cuda as kc
+    from nbodyhpc_tpu_torch.ops import knn
 
     t_phase = time.perf_counter()
     tree, queries, d3, i3 = harness
@@ -1190,9 +1191,9 @@ def cancel_phase(path: str, renderer, ref_host, harness, smi: str):
                                                       engine="ladder"))
     ms = interrupted_ms(lambda: tree.query_device(q, KNN_K, engine="ladder"),
                         full_ms)
-    kc.knn_topk.launches = 0
+    profiling.reset()
     d, idx = tree.query_device(queries, KNN_K)
-    if kc.knn_topk.launches == 0:
+    if _launches()["knn_topk"] == 0:
         fail("phase 7: the k-NN check after the interrupt took no kernel")
     if not (bits_equal(d, d3) and torch.equal(idx, i3)):
         fail("phase 7: the k-NN answer after the interrupt differs from "
@@ -1255,20 +1256,9 @@ SHARDED_KERNELS = ("splat_align", "splat_deposit", "knn_topk", "knn_select",
 
 def _launches() -> dict:
     """Every kernel's launch count, by the name of its ``kernels`` row."""
-    from nbodyhpc_tpu_torch.ops import knn_cuda as kc, splat_cuda as sc
-
-    return {"splat_align": sc.align.launches,
-            "splat_deposit": sc.deposit.launches,
-            "knn_topk": kc.knn_topk.launches,
-            "knn_select": kc.knn_select.launches,
-            "knn_dist": kc.knn_dist.launches}
-
-
-def _zero_launches() -> None:
-    from nbodyhpc_tpu_torch.ops import knn_cuda as kc, splat_cuda as sc
-
-    sc.align.launches = sc.deposit.launches = 0
-    kc.knn_topk.launches = kc.knn_select.launches = kc.knn_dist.launches = 0
+    counts = profiling.counters()
+    return {name: counts.get(name.replace("_", ".", 1) + ".launches", 0)
+            for name in SHARDED_KERNELS}
 
 
 def knn_inputs(n: int, q: int, seed: int, dev, queries_apart: bool):
@@ -1325,7 +1315,7 @@ def sharded_rank(rank: int, phase: str, spec: dict, tmp: str) -> None:
         False), its launches counted from zero."""
         if warm:
             fn()
-        _zero_launches()
+        profiling.reset()
         out, ms = synced(fn)
         info["launches"][name] = _launches()
         info["ms"][name] = ms
@@ -1883,9 +1873,10 @@ def main() -> int:
     n4, g4 = 50_000, 128
     gen.manual_seed(SEED + 4)
     p4, w4, r4 = lognormal_workload(n4, g4, gen)
-    sc.align.launches = sc.deposit.launches = 0
+    profiling.reset()
     vol4 = render_points_volume(p4, w4, r4, float(g4), g4, periodic=True)
-    launches4 = (sc.align.launches, sc.deposit.launches)
+    launches4 = tuple(_launches()[k]
+                      for k in ("splat_align", "splat_deposit"))
     if min(launches4) == 0:
         fail(f"phase 4: a kernel was not launched (align, deposit) = "
              f"{launches4}")
@@ -1909,13 +1900,15 @@ def main() -> int:
 
     vol = render()  # warm-up
     del vol
-    sc.align.launches = sc.deposit.launches = 0
+    profiling.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     vol = render()
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    launches = {"align": sc.align.launches, "deposit": sc.deposit.launches}
+    took = _launches()
+    launches = {"align": took["splat_align"],
+                "deposit": took["splat_deposit"]}
     if min(launches.values()) == 0:
         fail(f"phase 5: a kernel was not launched on the main path: "
              f"{launches}")

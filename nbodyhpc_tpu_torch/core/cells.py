@@ -18,6 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .points import PAD_SENTINEL, round_up, validate_points
 
 #: Default target mean points per cell (see the JAX module: 27 * occupancy
@@ -137,10 +138,16 @@ def build_cell_list(points, boxsize=None,
     """Build the cell list on ``device`` (default: the points' device for a
     tensor, else the CPU). Numpy arrays and CPU tensors are moved there
     first. Two host syncs: the extent (non-periodic) and the fullest cell."""
-    points = validate_points(points, boxsize)
     if device is None:
         device = (points.device if isinstance(points, torch.Tensor)
                   else torch.device("cpu"))
+    with profiling.span("nbodyhpc.knn.build", device):
+        return _build_cells(validate_points(points, boxsize), boxsize,
+                            occupancy, pad_multiple, device)
+
+
+def _build_cells(points, boxsize, occupancy: float, pad_multiple: int,
+                 device) -> CellList:
     points = torch.as_tensor(points, device=device)
     n = points.shape[0]
     periodic = boxsize is not None

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.cells import CellList
+from ..utils import profiling
 from .metrics import fma_f32, sq_dist, sqrt_f32, wrap_min_image
 
 #: the smallest batch the "auto" route sends to the candidate kernels
@@ -109,6 +110,12 @@ def _streaming_brute_pass(xyz, n: int, queries_w, k: int, box,
     """Memory-bounded exact scan over all sorted, padded points: a top-k
     carried over point blocks, merged as ``[best, new]`` (best wins ties).
     Returns (d2 [Q, k] ascending, slot [Q, k] int64)."""
+    profiling.count("knn.brute_rows", queries_w.shape[0])
+    with profiling.span("nbodyhpc.knn.brute"):
+        return _brute_pass(xyz, n, queries_w, k, box, block)
+
+
+def _brute_pass(xyz, n: int, queries_w, k: int, box, block: int):
     npad = xyz.shape[1]
     block = _divisor_block(npad, min(block, npad))
     Q = queries_w.shape[0]
@@ -299,6 +306,13 @@ def _cube_pass(tree: CellList, queries_w, qcell, k: int, r: int, budget: int,
     """One expanding-cube pass at Chebyshev cell radius ``r`` with per-cell
     slice cap ``budget``: recomputes the top-k from the whole cube and
     updates the unconverged rows of ``state`` (d2, slot, conv, stats)."""
+    profiling.count("knn.rungs")
+    with profiling.span("nbodyhpc.knn.rung"):
+        return _rung(tree, queries_w, qcell, k, r, budget, state)
+
+
+def _rung(tree: CellList, queries_w, qcell, k: int, r: int, budget: int,
+          state):
     Q = queries_w.shape[0]
     # cells fuller than the slice cap are truncated and force escalation
     ccap = min(budget, tree.npad)
@@ -407,6 +421,11 @@ def ladder_knn(tree: CellList, queries, k: int,
                with_stats: bool = False) -> KnnResult:
     """Exact k-NN through the ladder alone, chunked so the biggest pass's
     candidate block stays bounded. ``queries`` (Q, 3) on the tree's device."""
+    with profiling.span("nbodyhpc.knn.ladder"):
+        return _ladder_knn(tree, queries, k, with_stats)
+
+
+def _ladder_knn(tree: CellList, queries, k: int, with_stats: bool):
     ladder = default_ladder(tree)
     csize = ladder_chunk(ladder)
     dists, idxs, cs, pv, cp = [], [], [], [], []
@@ -456,7 +475,14 @@ def cell_knn_query(tree: CellList, queries, k: int,
     if use_kernel not in ("auto", "force", "never"):
         raise ValueError(f"use_kernel must be auto, force or never, "
                          f"got {use_kernel!r}")
+    with profiling.span("nbodyhpc.knn.query", tree.device):
+        return _cell_knn_query(tree, queries, k, with_stats, use_kernel)
+
+
+def _cell_knn_query(tree: CellList, queries, k: int, with_stats: bool,
+                    use_kernel: str) -> KnnResult:
     queries = as_queries(queries, tree.device)
+    profiling.count("knn.queries", queries.shape[0])
     use = kernel_route_ok(tree) and (
         use_kernel == "force"
         or (use_kernel == "auto" and tree.device.type == "cuda"

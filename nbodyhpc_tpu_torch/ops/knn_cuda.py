@@ -33,8 +33,9 @@ queries are consecutive), per piece ``piece_q0`` (first query row),
 ``piece_q0[p] - row_base + t`` answers query ``piece_q0[p] + t``.
 
 Each wrapper runs its plain PyTorch version for CPU tensors, and for CUDA
-tensors launches its kernel or raises; its ``launches`` attribute counts
-kernel launches only.
+tensors launches its kernel or raises; the counter
+``knn.<kernel>.launches`` (:func:`..utils.profiling.count`) counts kernel
+launches only.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import profiling
 from .knn import select_k
 from .metrics import sq_dist
 
@@ -217,12 +219,9 @@ def knn_dist(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
         run_len.data_ptr(), run_start.shape[1], xyz.data_ptr(), xyz.shape[1],
         *_box_args(box), out.data_ptr(), ncand, row_base, _stream(q),
     )
-    knn_dist.launches += 1
+    profiling.count("knn.dist.launches")
     _build.check(err, "knn_dist launch")
     return out
-
-
-knn_dist.launches = 0
 
 
 def select_block(d2, k: int, pid, run_start, run_len):
@@ -281,12 +280,9 @@ def knn_select(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
         *_box_args(box), out_d.data_ptr(), out_s.data_ptr(), k, row_base,
         _stream(q),
     )
-    knn_select.launches += 1
+    profiling.count("knn.select.launches")
     _build.check(err, "knn_select launch")
     return out_d, out_s
-
-
-knn_select.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -406,9 +402,6 @@ def knn_topk(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
         out_s.data_ptr(), k, row_base, nrows,
         None if counts is None else counts.data_ptr(), _stream(q),
     )
-    knn_topk.launches += 1
+    profiling.count("knn.topk.launches")
     _build.check(err, "knn_topk launch")
     return out_d, out_s
-
-
-knn_topk.launches = 0

@@ -38,8 +38,8 @@ ablation switch.
 
 Each kernel wrapper runs its plain PyTorch version (:func:`align_reference`,
 :func:`deposit_reference`) for tensors on the CPU, and for CUDA tensors
-launches the kernel or raises. Each counts its kernel launches in its
-``launches`` attribute.
+launches the kernel or raises. Each counts its kernel launches under the
+counter ``splat.<kernel>.launches`` (:func:`..utils.profiling.count`).
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..utils import profiling
 from .splat import FOUR_THIRDS_PI, as_f32, footprint_terms
 from .splat_dense import splat_volume_dense
 
@@ -236,6 +237,11 @@ def prepartition(positions, weights, radii, pixels_per_unit, grid):
     units is materialized here, so every later window base is the single
     rounding ``ceil(ppx - C)`` — the tile keys and the deposit kernel's
     in-kernel bases agree bit for bit."""
+    with profiling.span("nbodyhpc.render.partition"):
+        return _prepartition(positions, weights, radii, pixels_per_unit, grid)
+
+
+def _prepartition(positions, weights, radii, pixels_per_unit, grid):
     grid3 = tuple(int(v) for v in grid)
     positions = as_f32(positions)
     dev = positions.device
@@ -390,12 +396,9 @@ def align(starts, cnts, aoff, srcf, srci, ch: int, halo: int, nrows: int):
         srci.data_ptr(), dstf.data_ptr(), dsti.data_ptr(), ntiles,
         srcf.shape[1], nrows, ch, halo, _stream(srcf),
     )
-    align.launches += 1
+    profiling.count("splat.align.launches")
     _build.check(err, "splat_align launch")
     return dstf, dsti
-
-
-align.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -483,12 +486,9 @@ def deposit(attrs, nchunks: int, vol, geom: _Geom, subsample: int = 4):
         attrs.data_ptr(), attrs.shape[1], nchunks, geom.CH, geom.F,
         subsample, vol.data_ptr(), gx, gy, gz, _stream(attrs),
     )
-    deposit.launches += 1
+    profiling.count("splat.deposit.launches")
     _build.check(err, "splat_deposit launch")
     return vol
-
-
-deposit.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -537,14 +537,18 @@ def splat_volume(positions, weights, radii, pixels_per_unit: float, grid,
         part = prepartition(positions, weights, radii, pixels_per_unit, grid3)
     vol = (torch.zeros(grid3, dtype=torch.float32, device=part.pos_px.device)
            if vol0 is None else vol0)
-    for bi, geom in enumerate(BUCKETS):
-        stream = bucket_stream(part, bi)
-        if stream is not None:
-            deposit(stream[0], stream[2], vol, geom, subsample)
+    with profiling.span("nbodyhpc.render.buckets"):
+        for bi, geom in enumerate(BUCKETS):
+            stream = bucket_stream(part, bi)
+            if stream is not None:
+                deposit(stream[0], stream[2], vol, geom, subsample)
+                profiling.count("render.chunks", stream[2])
+    profiling.count("render.dense_rows", part.n_huge)
     if part.n_huge:
         sl = slice(part.dense_off, part.dense_off + part.n_huge)
-        vol = splat_volume_dense(
-            part.pos_px[sl], part.w[sl], part.rpx[sl], grid3, subsample,
-            vol0=vol, max_radius_px=part.max_rpx,
-        )
+        with profiling.span("nbodyhpc.render.dense"):
+            vol = splat_volume_dense(
+                part.pos_px[sl], part.w[sl], part.rpx[sl], grid3, subsample,
+                vol0=vol, max_radius_px=part.max_rpx,
+            )
     return vol

@@ -29,6 +29,7 @@ import torch
 from .. import default_device
 from ..ops import ghosts as _ghosts
 from ..ops import splat as _splat
+from ..utils import profiling
 
 Extent2d = Union[int, Tuple[int, int]]
 Extent3d = Union[int, Tuple[int, int, int]]
@@ -164,20 +165,26 @@ class PointRenderer:
 
     def _prepare(self, positions, weights, radii, period):
         c = self.container
-        positions, weights, radii = _validate_arrays(positions, weights,
-                                                     radii, c.device)
-        for name, t in (("positions", positions), ("weights", weights),
-                        ("radii", radii)):
-            c.check_finite(name, t)
+        with profiling.span("nbodyhpc.render.inputs"):
+            positions, weights, radii = _validate_arrays(positions, weights,
+                                                         radii, c.device)
+            for name, t in (("positions", positions), ("weights", weights),
+                            ("radii", radii)):
+                c.check_finite(name, t)
         if any(p > 0 for p in period):
-            positions, weights, radii = _ghosts.augment_points_periodic(
-                positions, weights, radii, period
-            )
+            n = positions.shape[0]
+            with profiling.span("nbodyhpc.render.ghosts"):
+                positions, weights, radii = _ghosts.augment_points_periodic(
+                    positions, weights, radii, period
+                )
+            profiling.count("render.ghost_rows", positions.shape[0] - n)
+        profiling.count("render.particles", positions.shape[0])
         return positions, weights, radii
 
     def _finish(self, field: torch.Tensor) -> np.ndarray:
-        self.container.check_finite("the rendered field", field)
-        return _to_fortran(field)
+        with profiling.span("nbodyhpc.render.to_host"):
+            self.container.check_finite("the rendered field", field)
+            return _to_fortran(field)
 
     def render_points(self, positions, weights, radii, pixels_per_unit: float,
                       period=(-1.0, -1.0, -1.0)) -> np.ndarray:
@@ -193,6 +200,12 @@ class PointRenderer:
         predicate is evaluated here with the oracle's exact float32
         expression, and selected particles are parked mid-slab.
         """
+        with profiling.span("nbodyhpc.render", self.container.device):
+            return self._render_points(positions, weights, radii,
+                                       pixels_per_unit, period)
+
+    def _render_points(self, positions, weights, radii, pixels_per_unit,
+                       period):
         positions, weights, radii = self._prepare(positions, weights, radii,
                                                   period)
         ppu = float(pixels_per_unit)
@@ -246,8 +259,10 @@ class PointRenderer:
         """Render the full volume; returns (height, width, num_slices)
         float32 F-order. Reference path: pybind.cpp:98-123 +
         point_renderer.cpp:825-950."""
-        return self._finish(self._render_volume_device(
-            positions, weights, radii, num_slices, pixels_per_unit, period))
+        with profiling.span("nbodyhpc.render", self.container.device):
+            return self._finish(self._render_volume_device(
+                positions, weights, radii, num_slices, pixels_per_unit,
+                period))
 
 
 @functools.lru_cache(maxsize=None)

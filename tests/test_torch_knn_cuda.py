@@ -17,8 +17,13 @@ import test_torch_knn_window as window
 from nbodyhpc_tpu_torch.kdtree import KDTree
 from nbodyhpc_tpu_torch.ops import knn_cuda as kc
 from nbodyhpc_tpu_torch.ops import knn_device as kd
+from nbodyhpc_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(kernel: str) -> int:
+    return profiling.counters().get(f"{kernel}.launches", 0)
 
 
 @pytest.fixture
@@ -59,23 +64,23 @@ def _staged(device, n, nq, periodic, dense=False, seed=3):
 @pytest.mark.parametrize("k", [1, 16, 128])
 def test_topk_kernel_bit_equal_to_plain(cuda, periodic, k):
     _, _, _, args, grid = _staged(cuda, 200_000, 20_000, periodic)
-    before = kc.knn_topk.launches
+    before = _launches("knn.topk")
     d2, slot = kc.knn_topk(*args, k, grid=grid)
-    assert kc.knn_topk.launches == before + 1
+    assert _launches("knn.topk") == before + 1
     rd, rs = kc.knn_topk_reference(*args, k)
     torch.cuda.synchronize()
     assert _bit_equal(d2, rd)
     assert torch.equal(slot, rs)
-    assert kc.knn_topk.launches == before + 1  # the plain version counts none
+    assert _launches("knn.topk") == before + 1  # the plain version counts none
 
 
 @pytest.mark.parametrize("periodic", [False, True])
 def test_dist_kernel_bit_equal_to_plain(cuda, periodic):
     _, plan, st, args, _ = _staged(cuda, 200_000, 20_000, periodic)
     ncand = int(plan.points[st.piece_pid.long()].max())
-    before = kc.knn_dist.launches
+    before = _launches("knn.dist")
     block = kc.knn_dist(*args, ncand)
-    assert kc.knn_dist.launches == before + 1
+    assert _launches("knn.dist") == before + 1
     ref = kc.knn_dist_reference(*args, ncand)
     torch.cuda.synchronize()
     assert _bit_equal(block, ref)
@@ -100,15 +105,15 @@ def test_dist_kernel_bit_equal_to_plain(cuda, periodic):
 def test_select_kernel_bit_equal_to_plain(cuda, periodic, k):
     _, plan, st, args, _ = _staged(cuda, 200_000, 20_000, periodic)
     assert int(plan.points[st.piece_pid.long()].max()) > 2 * kc.SELECT_LIST
-    before = kc.knn_select.launches, kc.knn_dist.launches
+    before = _launches("knn.select"), _launches("knn.dist")
     d2, slot = kc.knn_select(*args, k)
-    assert kc.knn_select.launches == before[0] + 1
+    assert _launches("knn.select") == before[0] + 1
     rd, rs = kc.knn_select_reference(*args, k)
     torch.cuda.synchronize()
     assert _bit_equal(d2, rd)
     assert torch.equal(slot, rs)
     # the plain version counts none, and the sink writes no block
-    assert (kc.knn_select.launches, kc.knn_dist.launches) == (
+    assert (_launches("knn.select"), _launches("knn.dist")) == (
         before[0] + 1, before[1])
     # a row range of its own, as the block route cuts them
     p0, p1 = 7, 40
@@ -237,10 +242,10 @@ def test_kdtree_on_the_card_equals_the_cpu(cuda, periodic, k):
                  leafsize=leafsize)
     cpu = KDTree(pts, boxsize=box, device="cpu", leafsize=leafsize)
     assert gpu.device.type == "cuda" and cpu.device.type == "cpu"
-    counters = (kc.knn_topk, kc.knn_select, kc.knn_dist)
-    before = [f.launches for f in counters]
+    kernels = ("knn.topk", "knn.select", "knn.dist")
+    before = [_launches(name) for name in kernels]
     d, i = gpu.query_device(torch.from_numpy(q).to(cuda), k=k)
-    took = [f.launches - b for f, b in zip(counters, before)]
+    took = [_launches(name) - b for name, b in zip(kernels, before)]
     assert [t > 0 for t in took] == [k <= 128, 128 < k <= 256, k > 256]
     assert kd.query_blocks_device.ladder_queries < len(q) // 2
     rd, ri = cpu.query_device(torch.from_numpy(q), k=k)

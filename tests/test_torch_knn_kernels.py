@@ -21,7 +21,12 @@ from nbodyhpc_tpu_torch.kdtree import KDTree as TKDTree
 from nbodyhpc_tpu_torch.ops import knn as tknn
 from nbodyhpc_tpu_torch.ops import knn_cuda as tkc
 from nbodyhpc_tpu_torch.ops import knn_device as tkd
+from nbodyhpc_tpu_torch.utils import profiling
 from test_torch_knn import _points, assert_bit_equal, port_tree
+
+
+def _launches(kernel: str) -> int:
+    return profiling.counters().get(f"{kernel}.launches", 0)
 
 
 # ---------------------------------------------------------------------------
@@ -305,9 +310,9 @@ def test_kernel_route_counts_and_ladder_share():
     pts = _points(20000, 43)
     q = pts[:1500]
     tree = TKDTree(pts, boxsize=1.0, device="cpu")
-    before = (tkc.knn_topk.launches, tkc.knn_dist.launches)
+    before = (_launches("knn.topk"), _launches("knn.dist"))
     d, i, stats = tree.query_with_statistics(q, k=16, engine="kernel")
-    assert (tkc.knn_topk.launches, tkc.knn_dist.launches) == before
+    assert (_launches("knn.topk"), _launches("knn.dist")) == before
     assert (d[:, 0] == 0).all()
     nbad = tkd.query_blocks_device.ladder_queries
     assert 0 <= nbad < 150

@@ -79,13 +79,6 @@ def test_field_save_load_roundtrip(rt, tmp_path):
     np.testing.assert_array_equal(rt.load_field(path), field)
 
 
-def test_profiling_timer():
-    out = []
-    with profiling.timer("x", sink=out.append) as box:
-        pass
-    assert "seconds" in box and out and out[0].startswith("x:")
-
-
 def test_stream_particles_matches_bulk_load(rt, tmp_path):
     """The double-buffered stream reproduces the bulk read, with ragged
     final batches and two interleaved streams."""

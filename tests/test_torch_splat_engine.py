@@ -20,9 +20,14 @@ from nbodyhpc_tpu_torch import _build
 from nbodyhpc_tpu_torch import interop
 from nbodyhpc_tpu_torch.ops import ghosts as tghosts
 from nbodyhpc_tpu_torch.ops import splat_cuda as sc
+from nbodyhpc_tpu_torch.utils import profiling
 from test_splat_dense import _quantum_atol
 
 RTOL, ATOL = 1e-6, 1e-7
+
+
+def _launches(kernel: str) -> int:
+    return profiling.counters().get(f"{kernel}.launches", 0)
 
 
 def _rng(seed):
@@ -187,9 +192,10 @@ def test_engine_matches_jax_oracle_all_buckets_periodic():
     jp, jw, jr = jghosts.augment_points_periodic(pos, w, r, box)
     want = joracle(jp, jw, jr, ppu, grid)
     tp, tw, tr = tghosts.augment_points_periodic(pos, w, r, box)
-    launches = (sc.align.launches, sc.deposit.launches)
+    launches = (_launches("splat.align"), _launches("splat.deposit"))
     got = sc.splat_volume(tp, tw, tr, ppu, grid)
-    assert (sc.align.launches, sc.deposit.launches) == launches  # plain
+    assert (_launches("splat.align"),
+            _launches("splat.deposit")) == launches  # plain
     part = sc.prepartition(tp, tw, tr, ppu, grid)
     assert all(t[-1] > t[0] for t in part.wtabs) and part.n_huge > 0
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL,
