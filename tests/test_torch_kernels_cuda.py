@@ -233,3 +233,50 @@ def test_rasterizer_on_card_matches_cpu(cuda):
         rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(img, cpu.render_points(pos, w, r, 32.0),
                                rtol=RTOL, atol=ATOL)
+
+
+def test_finish_copies_through_pinned_slabs(cuda):
+    """A 256^3 render's copy to the host, in one slab and in 16, bit-equal
+    to the one pageable copy; the profiler sees pinned copies only, and a
+    second call allocates no pinned memory."""
+    import math
+
+    from nbodyhpc_tpu_torch.rasterizer import (SLAB_BYTES, Container,
+                                               PointRenderer,
+                                               _to_fortran_slabs)
+
+    g = 256
+    pos, w, rpx = _particles(200_000, 17, rpx_hi=6.0)
+    pr = PointRenderer(Container(device=cuda), g, g)
+    field = pr._render_volume_device(pos, w, rpx / g, g, float(g))
+    want = field.permute(2, 1, 0).contiguous().cpu().numpy().transpose(
+        2, 1, 0).view(np.uint32)
+    assert want.any()
+
+    def slabs():
+        return profiling.counters().get("render.to_host.slabs", 0)
+
+    def copies():
+        before = slabs()
+        one = pr._finish(field)
+        assert slabs() - before == math.ceil(field.numel() * 4 / SLAB_BYTES)
+        many = _to_fortran_slabs(field, 16)
+        assert slabs() - before == math.ceil(field.numel() * 4
+                                             / SLAB_BYTES) + g // 16
+        for a in (one, many):
+            assert a.flags["F_CONTIGUOUS"] and a.dtype == np.float32
+            np.testing.assert_array_equal(a.view(np.uint32), want)
+
+    copies()
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        copies()
+        torch.cuda.synchronize()
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
+    d2h = {e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and "DtoH" in e.name}
+    assert "Memcpy DtoH (Device -> Pinned)" in d2h, d2h
+    assert not any("Pageable" in name for name in d2h), d2h

@@ -318,6 +318,52 @@ def test_render_points_2d_matches_jax(engine):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
+def _slab_fields():
+    """(field, rows) cases of the slab copy; values with a sign and -0.0."""
+    rng = np.random.Generator(np.random.Philox(53))
+
+    def field(*shape):
+        a = (rng.random(shape) - 0.5).astype(np.float32)
+        a.flat[0] = -0.0
+        return torch.from_numpy(a)
+
+    return {
+        "rows-not-dividing-nz": (field(5, 4, 7), 3),
+        "one-slice-volume": (field(5, 4, 1), 2),
+        "2d-field": (field(6, 5), 2),
+        "render-points-view": (field(6, 5, 1)[:, :, 0], 2),
+        "strided-view": (field(6, 5, 3)[:, :, 1], 4),
+        "slab-larger-than-field": (field(4, 3, 5), 100),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_slab_fields()))
+def test_slab_copy_bit_equal_to_one_copy(case):
+    """The copy to the host in slabs (a card's path, here on CPU tensors
+    with forced slab rows) against the one permute and copy, bit for bit;
+    the CPU path itself stages nothing."""
+    from nbodyhpc_tpu_torch.utils import profiling
+
+    field, rows = _slab_fields()[case]
+    rev = tuple(range(field.dim() - 1, -1, -1))
+    want = field.permute(rev).contiguous().numpy().transpose(rev)
+    n = field.shape[-1]
+
+    def slabs():
+        return profiling.counters().get("render.to_host.slabs", 0)
+
+    before = slabs()
+    got = tras._to_fortran_slabs(field, rows)
+    assert slabs() - before == math.ceil(n / min(rows, n))
+    before = slabs()
+    one = tras._to_fortran(field)
+    assert slabs() == before
+    for a in (got, one):
+        assert a.flags["F_CONTIGUOUS"] and a.dtype == np.float32
+        assert a.shape == tuple(field.shape)
+        np.testing.assert_array_equal(a.view(np.uint32), want.view(np.uint32))
+
+
 def test_rasterizer_demo_cli():
     from nbodyhpc_tpu_torch.cli import rasterizer_demo
 
