@@ -5,7 +5,9 @@ Builds the kernels from ``nbodyhpc_tpu_torch/csrc/`` with nvcc, holds each
 against its plain PyTorch version on the card, drives the volume render
 (``nbodyhpc_tpu_torch.rasterizer.render_points_volume``) at a moderate size
 against the same render on the CPU, then at full size: 256^3 particles into
-a 1024^3 grid, periodic, subsample 4; then (phase 6) writes that set to a
+a 1024^3 grid, periodic, subsample 4; then (phase 5b) holds the dense
+pass's kernel (radii above 15 px) to its plain twin on that render's dense
+rows and on a halo-sized batch; then (phase 6) writes that set to a
 particle file, reads it back, renders it through the demo's ``--file`` path
 and streams it in batches; after the k-NN phases (phase 8) spawns ranks
 of the sharded path (``nbodyhpc_tpu_torch.parallel``): one NCCL rank, then
@@ -335,6 +337,87 @@ def lognormal_workload(n: int, grid: int, gen: torch.Generator):
         torch.exp(0.35 * torch.randn(n, generator=gen, device=dev))
         * spacing_px, 0.1)
     return pos, torch.ones(n, device=dev), rpx / grid
+
+
+# the dense pass (radii above 15 px): a voxel's terms are the plain twin's
+# to the bit, summed in another order (shared-memory atomics, then one add
+# into the volume), so a voxel may differ by the float32 rounding of its
+# terms in two orders: at most DENSE_ULPS sqrt(n) ulps of the voxel's
+# value, n the batch's rows (all weights positive), and 0 where no row
+# reaches
+DENSE_ULPS = 16
+# a halo-sized batch: the halo cell's void rows (15-25 px, ~13 px apart, so
+# ~9 spheres on a voxel) at 8,192 rows in a 260^3 box, in the grid's middle
+DENSE_BATCH, DENSE_SPAN = 8192, 260
+
+
+def dense_check(name: str, got: torch.Tensor, want: torch.Tensor,
+                n: int) -> float:
+    """Max abs difference of the dense kernel's field from its plain
+    twin's; fails past the DENSE_ULPS tolerance."""
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite values")
+    diff = (got - want).abs()
+    tol = DENSE_ULPS * n ** 0.5 * torch.finfo(torch.float32).eps * want.abs()
+    bad = int((diff > tol).sum())
+    err = float(diff.max())
+    if bad:
+        fail(f"{name}: {bad} voxels past {DENSE_ULPS} sqrt({n}) ulps (max "
+             f"abs err {err:.3e})")
+    return err
+
+
+def dense_phase(part, g: int, gen: torch.Generator, smi: str) -> dict:
+    """Phase 5b: the dense pass's kernel (``splat_dense.dense_deposit``,
+    ``csrc/splat_dense.cu``) against its plain twin ``dense_reference`` on
+    the card, each into a zeroed g^3 volume: on phase 5's own dense rows
+    (the partition's tail, ghosts included) and on a halo-sized batch.
+    Times both (CUDA events; the kernel's binning and its one read back
+    included) and the bound: 20 B a row read, 4 B a voxel of the spheres
+    written, at most the grid. Returns the ``kernels`` row's numbers for
+    phase 5's rows."""
+    from nbodyhpc_tpu_torch.ops import splat_dense as sd
+
+    dev = part.pos_px.device
+    sl = slice(part.dense_off, part.dense_off + part.n_huge)
+    tail = (part.pos_px[sl], part.w[sl], part.rpx[sl])
+    gen.manual_seed(SEED + 5)
+    n = DENSE_BATCH
+    lo = (g - DENSE_SPAN) / 2
+    batch = (lo + DENSE_SPAN * torch.rand((n, 3), generator=gen, device=dev),
+             torch.ones(n, device=dev),
+             15.0 * torch.exp(0.17 * torch.randn(
+                 n, generator=gen, device=dev).abs()).clamp_max(2.0))
+    vol_k = torch.empty((g,) * 3, device=dev)
+    vol_r = torch.empty((g,) * 3, device=dev)
+    out = {}
+    for who, (p, w, r) in (("main path", tail), ("halo batch", batch)):
+        rows = p.shape[0]
+        if rows == 0:
+            fail(f"phase 5b: the {who} has no dense rows")
+        mr = float(r.max())
+        ms = cuda_ms(lambda: sd.dense_deposit(p, w, r, vol_k, 4), 3)
+        vol_k.zero_()
+        sd.dense_deposit(p, w, r, vol_k, 4)
+        vol_r.zero_()
+        plain_ms = event_ms(lambda: sd.dense_reference(p, w, r, vol_r, 4, mr))
+        err = dense_check(f"phase 5b dense kernel, {who}", vol_k, vol_r, rows)
+        spheres = int(torch.ceil(sd.FOUR_THIRDS_PI * (r * r * r)).sum(
+            dtype=torch.float64))
+        b_ms, b_by = bound(20 * rows + 4 * min(spheres, g ** 3))
+        log(f"phase 5b ({smi}): dense pass on the {who}, {rows} rows of "
+            f"{float(r.min()):.2f}-{mr:.2f} px, {spheres} sphere voxels "
+            f"-> {g}^3: kernel {ms:.3f} ms (binning and its read back "
+            f"included), plain twin {plain_ms:.3f} ms; within "
+            f"{DENSE_ULPS} sqrt(n) ulps, max abs err {err:.3e}; bound "
+            f"{b_ms:.4f} ms ({b_by}), share {b_ms / ms:.4f}")
+        out[who] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err,
+                    "bound_ms": b_ms, "bound_by": b_by}
+    del vol_k, vol_r
+    torch.cuda.empty_cache()
+    row = dict(out["main path"])
+    row["max_abs_err"] = max(v["max_abs_err"] for v in out.values())
+    return row
 
 
 # the reference kd-tree harness: 1e7 points, 5e5 self-queries, k=16
@@ -1250,8 +1333,8 @@ SHARDED_SPEC = {
 # the kNN-CDF of phase 8b: k up to the harness's, radii past its 16th
 # neighbour distance (~0.0073 at 1e7 points)
 CDF_K, CDF_RMAX, CDF_NR = (1, 2, 4, 8, 16), 0.012, 64
-SHARDED_KERNELS = ("splat_align", "splat_deposit", "knn_topk", "knn_select",
-                   "knn_dist")
+SHARDED_KERNELS = ("splat_align", "splat_deposit", "splat_dense", "knn_topk",
+                   "knn_select", "knn_dist")
 
 
 def _launches() -> dict:
@@ -1908,10 +1991,11 @@ def main() -> int:
     render_s = time.perf_counter() - t0
     took = _launches()
     launches = {"align": took["splat_align"],
-                "deposit": took["splat_deposit"]}
-    if min(launches.values()) == 0:
+                "deposit": took["splat_deposit"],
+                "dense": took["splat_dense"]}
+    if min(launches.values()) == 0 or part.n_huge == 0:
         fail(f"phase 5: a kernel was not launched on the main path: "
-             f"{launches}")
+             f"{launches}; dense rows {part.n_huge}")
     if vol.shape != (g_full,) * 3 or not vol.flags["F_CONTIGUOUS"]:
         fail(f"phase 5: output shape {vol.shape} / order is wrong")
     if not bool(torch.isfinite(torch.from_numpy(vol)).all()):
@@ -1954,6 +2038,8 @@ def main() -> int:
         f"{dratio:.6f}; launches {launches}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
 
+    dense = dense_phase(part, g_full, gen, smi)
+
     # removed at the end, or by its finalizer when a phase fails
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     path, renderer, ref6 = file_phase(tmp.name, pos, w, r, g_full, smi)
@@ -1976,6 +2062,10 @@ def main() -> int:
          "ms": dep_ms, "plain_ms": dep_plain_ms,
          "bound_ms": dep_bound_ms, "bound_by": dep_bound_by,
          "library_ms": None},
+        {"name": "splat_dense", "route": "cuda",
+         "source": "nbodyhpc_tpu_torch/csrc/splat_dense.cu",
+         "replaces": "none (nbodyhpc_tpu/ops/splat_dense.py is plain XLA)",
+         "launches": launches["dense"], **dense, "library_ms": None},
     ]
     base_topk = (baseline_topk(opts.baseline_topk) if opts.baseline_topk
                  else None)

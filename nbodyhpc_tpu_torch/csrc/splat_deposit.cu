@@ -34,19 +34,9 @@
 //    radii spread evenly. Consecutive items are neighbouring y columns of one
 //    particle, so the lanes of a warp share its attributes and have similar
 //    z extents.
-// 3. Interior and exterior voxels without the S^3 loop. The subcell count is
-//    sum over (a, b, c) of [az[c] < rab(a, b)], rab = r2 - (ax[a] + ay[b]),
-//    every term the oracle's float32 expression. Rounded addition and
-//    subtraction are monotone in each operand, so for every (a, b)
-//      rab_lo = r2 - (max ax + max ay)  <=  rab(a, b)  <=  r2 - (min ax +
-//      min ay) = rab_hi.
-//    If max az < rab_lo every compare is true (count S^3); if min az >=
-//    rab_hi every compare is false (count 0, nothing is added, as before).
-//    Only the remaining shell voxels are counted: the S values of az are
-//    sorted once per voxel and each (a, b) row adds the number of sorted
-//    values below rab(a, b), found by a branch-free lower-bound search. That
-//    search makes the same az[c] < rab compares, so on a multiset of the
-//    same values it returns exactly the loop's count.
+// 3. Interior and exterior voxels without the S^3 loop: the per-voxel
+//    subcell count of splat_common.h, which bounds each column's rab(a, b)
+//    once and counts only the shell voxels.
 // 4. Float4 atomics. A thread owns aligned groups of 4 z-voxels of its
 //    column and adds each group with one atomicAdd(float4 *, float4)
 //    (red.global.add.v4.f32, compute capability 9.x); voxels of the group
@@ -58,9 +48,8 @@
 // Exactness: every expression is the oracle's (nbodyhpc_tpu_torch/ops/
 // splat.py::footprint_terms) in the same float32 order; the window base is
 // recomputed here from the materialized pixel-unit positions with the same
-// ceil(p - (F/2 + 0.5)) as the tile keys. Build with --fmad=false so no
-// multiply-add is contracted: a contracted r2 - (ax + ay) could flip a
-// knife-edge subcell. F and the common S = 4 are template parameters; other S
+// ceil(p - (F/2 + 0.5)) as the tile keys. Build with --fmad=false (see
+// splat_common.h). F and the common S = 4 are template parameters; other S
 // up to 16 take the runtime path.
 //
 // Attribute layout: float32 [8][stride] rows px py pz rpx w_norm w_raw is_sub
@@ -70,23 +59,16 @@
 
 #include <cstdint>
 
+#include "splat_common.h"
+
 namespace {
+
+using splat::gated;
+using splat::kMaxS;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kAttrs = 7;  // px py pz rpx w_norm w_raw is_sub
-constexpr int kMaxS = 16;  // largest subsample factor the generic path takes
-
-// The oracle's gates at slice vz for a column with center offsets (cx, cy):
-// the gl_ClipDistance z-cull, then the coverage square of half-side
-// ceil(plane_r) + 1.
-__device__ __forceinline__ bool gated(float cx, float cy, float pz, float r,
-                                      float r2, int vz) {
-  const float zoff = pz - (static_cast<float>(vz) + 0.5f);
-  if (!(fabsf(zoff) <= r + 1.0f)) return false;
-  const float half = ceilf(sqrtf(fmaxf(r2 - zoff * zoff, 0.0f))) + 1.0f;
-  return cx >= -half && cx < half && cy >= -half && cy < half;
-}
 
 // Voxel v's center offset (v + 0.5) - p along one axis lies in [-h, h).
 __device__ __forceinline__ bool in_square(int v, float p, float h) {
@@ -103,49 +85,6 @@ __device__ __forceinline__ void square_range(float p, float h, int a, int b,
   hi = min(static_cast<int>(ceilf(p + h)) + 1, b);
   while (lo <= hi && !in_square(lo, p, h)) ++lo;
   while (hi >= lo && !in_square(hi, p, h)) --hi;
-}
-
-// Number of the S sorted values s[0..S) below x (a lower-bound search).
-template <int SC>
-__device__ __forceinline__ int count_below(const float* s, float x, int S) {
-  if constexpr (SC == 4) {
-    const bool b1 = s[1] < x;
-    const bool b2 = (b1 ? s[2] : s[0]) < x;
-    return 2 * b1 + b2 + (b1 && b2 && s[3] < x);
-  } else {
-    int base = 0;
-    for (int n = S; n > 1;) {
-      const int h = n >> 1;
-      base = s[base + h] < x ? base + h : base;
-      n -= h;
-    }
-    return base + (s[base] < x);
-  }
-}
-
-__device__ __forceinline__ void cswap(float& a, float& b) {
-  const float lo = fminf(a, b);
-  b = fmaxf(a, b);
-  a = lo;
-}
-
-// Sorts s[0..S) ascending (a network for S = 4, insertion otherwise).
-template <int SC>
-__device__ __forceinline__ void sort_values(float* s, int S) {
-  if constexpr (SC == 4) {
-    cswap(s[0], s[1]);
-    cswap(s[2], s[3]);
-    cswap(s[0], s[2]);
-    cswap(s[1], s[3]);
-    cswap(s[1], s[2]);
-  } else {
-    for (int i = 1; i < S; ++i) {
-      const float v = s[i];
-      int j = i;
-      for (; j > 0 && s[j - 1] > v; --j) s[j] = s[j - 1];
-      s[j] = v;
-    }
-  }
 }
 
 // Block-wide exclusive prefix sum of v; *total receives the sum over all
@@ -188,8 +127,7 @@ deposit_kernel(const float* __restrict__ attrs, long long stride, int ch,
   int* s_ny = s_y0 + ch;
   __shared__ int warp_sums[kWarps];
 
-  constexpr int kS = SC > 0 ? SC : kMaxS;
-  constexpr int kUnroll = SC > 0 ? SC : 1;  // unroll only fixed-S loops
+  constexpr int kS = splat::kSlots<SC>;
   constexpr float kBase = F * 0.5f + 0.5f;  // exact for every bucket F
   const int S = SC > 0 ? SC : s_rt;
   const long long c0 = static_cast<long long>(blockIdx.x) * ch;
@@ -257,9 +195,7 @@ deposit_kernel(const float* __restrict__ attrs, long long stride, int ch,
   // ---- the items: one (particle, column) each ----------------------------
   const float s3 = static_cast<float>(S * S * S);
   float u[kS];
-#pragma unroll kUnroll
-  for (int a = 0; a < kS; ++a)
-    u[a] = (static_cast<float>(a) + 0.5f) / static_cast<float>(S);
+  splat::subcell_offsets<SC>(u, S);
 
   for (int it = threadIdx.x; it < total; it += kThreads) {
     // the particle: the last row whose item range starts at or before it
@@ -298,25 +234,9 @@ deposit_kernel(const float* __restrict__ attrs, long long stride, int ch,
     while (zlo > za && gated(cx, cy, pz, r, r2, zlo - 1)) --zlo;
 
     // the column's subcell rows: rab(a, b) = r2 - (ax[a] + ay[b])
-    float ax[kS], ay[kS];
-    const float dx = px - vxf;
-    const float dy = py - vyf;
-    float axmin = __int_as_float(0x7f800000), axmax = 0.0f;
-    float aymin = axmin, aymax = 0.0f;
-#pragma unroll kUnroll
-    for (int a = 0; a < kS; ++a) {
-      if (a >= S) break;
-      float t = dx - u[a];
-      ax[a] = t * t;
-      t = dy - u[a];
-      ay[a] = t * t;
-      axmin = fminf(axmin, ax[a]);
-      axmax = fmaxf(axmax, ax[a]);
-      aymin = fminf(aymin, ay[a]);
-      aymax = fmaxf(aymax, ay[a]);
-    }
-    const float rab_lo = r2 - (axmax + aymax);
-    const float rab_hi = r2 - (axmin + aymin);
+    float ax[kS], ay[kS], rab_lo, rab_hi;
+    splat::column_rows<SC>(u, S, px - vxf, py - vyf, r2, ax, ay, rab_lo,
+                           rab_hi);
 
     for (int g = zlo & ~3; g <= zhi; g += 4) {
       float v[4];
@@ -325,36 +245,9 @@ deposit_kernel(const float* __restrict__ attrs, long long stride, int ch,
         const int vz = g + j;
         v[j] = 0.0f;
         if (vz < zlo || vz > zhi) continue;
-        const float dz = pz - static_cast<float>(vz);
-        float az[kS];
-        float azmin = __int_as_float(0x7f800000), azmax = 0.0f;
-#pragma unroll kUnroll
-        for (int c = 0; c < kS; ++c) {
-          if (c >= S) break;
-          const float t = dz - u[c];
-          az[c] = t * t;
-          azmin = fminf(azmin, az[c]);
-          azmax = fmaxf(azmax, az[c]);
-        }
-        int count;
-        if (azmax < rab_lo) {
-          count = S * S * S;  // interior: every compare holds
-        } else if (azmin >= rab_hi) {
-          continue;  // exterior: no compare holds
-        } else {
-          sort_values<SC>(az, S);
-          count = 0;
-#pragma unroll kUnroll
-          for (int a = 0; a < kS; ++a) {
-            if (a >= S) break;
-#pragma unroll kUnroll
-            for (int b = 0; b < kS; ++b) {
-              if (b >= S) break;
-              count += count_below<SC>(az, r2 - (ax[a] + ay[b]), S);
-            }
-          }
-          if (count == 0) continue;
-        }
+        const int count = splat::subcell_count<SC>(
+            u, S, ax, ay, r2, rab_lo, rab_hi, pz - static_cast<float>(vz));
+        if (count == 0) continue;
         v[j] = w_norm * (static_cast<float>(count) / s3);
       }
       if (v[0] == 0.0f && v[1] == 0.0f && v[2] == 0.0f && v[3] == 0.0f)

@@ -40,6 +40,16 @@ import math
 import torch
 
 FOUR_THIRDS_PI = 4.0 / 3.0 * math.pi
+#: largest subsample factor the splat kernels take (``kMaxS`` of
+#: ``csrc/splat_common.h``)
+MAX_SUBSAMPLE = 16
+
+
+def require(cond: bool, msg: str) -> None:
+    """Raise ``ValueError(msg)`` unless ``cond``: the kernel wrappers'
+    argument checks."""
+    if not cond:
+        raise ValueError(msg)
 
 
 def as_f32(x, device=None) -> torch.Tensor:

@@ -26,7 +26,8 @@ bucket the pipeline is:
    the grid.
 
 Radii above the last bucket (15 px) take the dense pass
-(:mod:`.splat_dense`) on the partition's tail.
+(:mod:`.splat_dense`, kernel ``csrc/splat_dense.cu`` on a card) on the
+partition's tail.
 
 The deposit writes the logical volume directly, so there is no tile-major
 buffer and no counterpart of the JAX engine's ``_unpack_tiles`` halo fold.
@@ -49,13 +50,18 @@ import torch
 
 from .. import _build
 from ..utils import profiling
-from .splat import FOUR_THIRDS_PI, as_f32, footprint_terms
+from .splat import (
+    FOUR_THIRDS_PI,
+    MAX_SUBSAMPLE,
+    as_f32,
+    footprint_terms,
+    require as _require,
+)
 from .splat_dense import splat_volume_dense
 
 TX, TZ = 128, 64  # tile extent in x and z (y extent: the bucket's YTILE)
 NF = 8            # float channels: px py pz rpx w_norm w_raw is_sub spare
 NI = 4            # int channels: tile bx_ext bz_ext by_local
-MAX_SUBSAMPLE = 16  # largest subsample factor the deposit kernel takes
 
 
 class _Geom(NamedTuple):
@@ -204,6 +210,7 @@ class FusedPartition(NamedTuple):
     dense_off: int        # first row of the dense (> last rung) tail
     n_huge: int           # dense-tail population (excludes trash)
     max_rpx: float        # max pixel radius over the whole set
+    dense_voxels: int = 0  # sum over the dense tail of ceil(4/3 pi rpx^3)
 
 
 def _fused_partition(ppx, w, rpx, grid):
@@ -251,9 +258,21 @@ def _prepartition(positions, weights, radii, pixels_per_unit, grid):
     pos_c, w_c, r_c, key_c, offs = _fused_partition(
         ppx, as_f32(weights, dev), rpx, grid3
     )
-    fo = offs.tolist() + [n]
-    max_rpx = float(rpx.max()) if n else 0.0
-    kbases, _, _ = _fused_bases(grid3)
+    kbases, dense_key, _ = _fused_bases(grid3)
+    max_rpx, dense_voxels = 0.0, 0
+    if n:
+        # one read brings the offsets, the largest radius and the voxels
+        # the dense rows' spheres hold
+        sphere = torch.ceil(FOUR_THIRDS_PI * (r_c * r_c * r_c))
+        head = torch.stack([
+            rpx.max().double(),
+            torch.where(key_c == dense_key, sphere, 0.0).sum(
+                dtype=torch.float64)])
+        vals = torch.cat([head, offs.double()]).tolist()
+        max_rpx, dense_voxels = vals[0], int(vals[1])
+        fo = [int(v) for v in vals[2:]] + [n]
+    else:
+        fo = offs.tolist() + [n]
     wtabs, cum = [], 0
     for g in BUCKETS:
         ntx_g = _grid_pad(grid3, g)[0] // TX
@@ -263,6 +282,7 @@ def _prepartition(positions, weights, radii, pixels_per_unit, grid):
         pos_px=pos_c, w=w_c, rpx=r_c, key=key_c, grid=grid3,
         wtabs=tuple(wtabs), kbases=tuple(kbases), dense_off=fo[cum],
         n_huge=fo[cum + 1] - fo[cum], max_rpx=max_rpx,
+        dense_voxels=dense_voxels,
     )
 
 
@@ -348,11 +368,6 @@ def align_reference(starts, cnts, aoff, srcf, srci, ch: int, halo: int,
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
 
 
 def align(starts, cnts, aoff, srcf, srci, ch: int, halo: int, nrows: int):
@@ -544,6 +559,7 @@ def splat_volume(positions, weights, radii, pixels_per_unit: float, grid,
                 deposit(stream[0], stream[2], vol, geom, subsample)
                 profiling.count("render.chunks", stream[2])
     profiling.count("render.dense_rows", part.n_huge)
+    profiling.count("render.dense_voxels", part.dense_voxels)
     if part.n_huge:
         sl = slice(part.dense_off, part.dense_off + part.n_huge)
         with profiling.span("nbodyhpc.render.dense"):

@@ -125,12 +125,9 @@ def _validate_arrays(positions, weights, radii, device):
     return positions, weights, radii
 
 
-#: bytes of one staging slab of a card field's copy to the host, in whole
-#: rows of the axis-reversed field (one row at least)
+#: bytes of one slab of a card field's copy to the host, in whole rows of
+#: the axis-reversed field (one row at least)
 SLAB_BYTES = 64 << 20
-#: pinned staging slabs used in turn: the card fills two while the host
-#: writes the third out
-STAGING_SLABS = 3
 
 
 def _to_fortran(field: torch.Tensor) -> np.ndarray:
@@ -146,51 +143,28 @@ def _to_fortran(field: torch.Tensor) -> np.ndarray:
 
 
 def _to_fortran_slabs(field: torch.Tensor, rows: int) -> np.ndarray:
-    """:func:`_to_fortran` through staging slabs of ``rows`` rows of the
-    axis-reversed field (its dim 0: z for a volume). Each slab is made
-    contiguous on the field's device and copied into a staging buffer,
-    pinned on a card (``non_blocking``, an event after it); while the card
-    works on the next slabs, the host writes the oldest one into a fresh
-    numpy array (numpy asks the kernel for huge pages on large arrays), and
-    torch's intra-op threads share the write and its page faults. A card's
-    pinned buffers come from torch's caching host allocator, so calls after
-    the first allocate no pinned memory. Counts the slabs under
-    ``render.to_host.slabs``."""
+    """:func:`_to_fortran` in slabs of ``rows`` rows of the axis-reversed
+    field (its dim 0: z for a volume): each slab is made contiguous on the
+    field's device and copied into its rows of the host array, so the card
+    holds one slab of the permute at a time. A card's host array is pinned
+    memory from torch's caching host allocator, which the copies fill
+    straight (``non_blocking``, one synchronize at the end); the array is a
+    view of that memory, and when it is freed the memory goes back to the
+    allocator, so a later call of the same size neither allocates nor
+    faults in host pages. Counts the slabs under ``render.to_host.slabs``."""
     rev = tuple(range(field.dim() - 1, -1, -1))
     src = field.permute(rev)
-    out = np.empty(tuple(src.shape), np.float32)
-    host = torch.from_numpy(out)
+    card = field.is_cuda
+    out = torch.empty(tuple(src.shape), dtype=torch.float32, pin_memory=card)
     n = src.shape[0]
     rows = max(1, min(rows, n))
     starts = range(0, n, rows)
-    card = field.is_cuda
-    stream = torch.cuda.current_stream(field.device) if card else None
-    bufs = [torch.empty((rows,) + tuple(src.shape[1:]), dtype=torch.float32,
-                        pin_memory=card)
-            for _ in range(min(STAGING_SLABS, len(starts)))]
-    pending: list = []
-
-    def write_oldest():
-        a, b, stage, done = pending.pop(0)
-        if done is not None:
-            done.synchronize()
-        host[a:b].copy_(stage)
-
-    for j, a in enumerate(starts):
-        b = min(n, a + rows)
-        stage = bufs[j % len(bufs)][:b - a]
-        stage.copy_(src[a:b].contiguous(), non_blocking=card)
-        done = None
-        if card:
-            done = torch.cuda.Event()
-            done.record(stream)
-        pending.append((a, b, stage, done))
-        if len(pending) == len(bufs):
-            write_oldest()
-    while pending:
-        write_oldest()
+    for a in starts:
+        out[a:a + rows].copy_(src[a:a + rows].contiguous(), non_blocking=card)
+    if card:
+        torch.cuda.current_stream(field.device).synchronize()
     profiling.count("render.to_host.slabs", len(starts))
-    return out.transpose(rev)
+    return out.numpy().transpose(rev)
 
 
 class PointRenderer:

@@ -1,5 +1,6 @@
-"""The deposit kernel's shortcuts (``csrc/splat_deposit.cu``), pinned on the
-CPU against the oracle's ``footprint_terms``.
+"""The deposit kernel's shortcuts (``csrc/splat_deposit.cu``; its subcell
+count, which the dense kernel shares, is in ``csrc/splat_common.h``),
+pinned on the CPU against the oracle's ``footprint_terms``.
 
 The kernel decides most voxels without the S^3 subcell loop and visits only
 a covered box of each window. A torch mirror of each step, written here the

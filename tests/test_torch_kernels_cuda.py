@@ -280,3 +280,155 @@ def test_finish_copies_through_pinned_slabs(cuda):
            and "DtoH" in e.name}
     assert "Memcpy DtoH (Device -> Pinned)" in d2h, d2h
     assert not any("Pageable" in name for name in d2h), d2h
+
+
+def test_volume_render_returns_pinned_host_memory(cuda):
+    """A card volume comes back as a view of pinned memory from torch's
+    caching host allocator, bit-equal to the field's one copy; once that
+    array is freed, the next render of its size allocates no host memory."""
+    from nbodyhpc_tpu_torch import rasterizer as tras
+
+    g = 256
+    pos, w, rpx = _particles(200_000, 19, rpx_hi=6.0)
+    pr = tras.PointRenderer(tras.Container(device=cuda), g, g)
+    field = pr._render_volume_device(pos, w, rpx / g, g, float(g))
+    want = field.permute(2, 1, 0).contiguous().cpu().numpy().transpose(2, 1, 0)
+    got = pr._finish(field)
+    assert got.flags["F_CONTIGUOUS"] and torch.from_numpy(got).is_pinned()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    del got
+    allocs = torch.cuda.host_memory_stats()["num_host_alloc"]
+    vol = pr.render_points_volume(pos, w, rpx / g, g, float(g))
+    assert torch.cuda.host_memory_stats()["num_host_alloc"] == allocs
+    assert vol.flags["F_CONTIGUOUS"] and torch.from_numpy(vol).is_pinned()
+    np.testing.assert_allclose(vol, want, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the dense large-radius pass (csrc/splat_dense.cu)
+# ---------------------------------------------------------------------------
+
+
+def _dense_rows(case, rng):
+    """(positions px [n, 3], weights [n], radii px [n], grid) of one case."""
+    if case == "large":  # 15-60 px, all inside a 96^3 grid
+        n, grid = 300, (96, 96, 96)
+        pos = rng.uniform(0, 96, (n, 3))
+        rpx = rng.uniform(15, 60, n)
+    elif case == "faces":  # windows cut by every face, some centres outside
+        n, grid = 400, (70, 83, 66)
+        pos = rng.uniform(-20, 1, (n, 3)) + rng.integers(0, 2, (n, 3)) * (
+            np.array(grid) + 19)
+        rpx = rng.uniform(15, 40, n)
+    elif case == "small_grid":  # every axis below the window F
+        n, grid = 120, (20, 37, 11)
+        pos = rng.uniform(-5, 40, (n, 3))
+        rpx = rng.uniform(15, 45, n)
+    elif case == "signed_weights":
+        n, grid = 300, (64, 72, 80)
+        pos = rng.uniform(0, 64, (n, 3))
+        rpx = rng.uniform(15, 30, n)
+    else:  # one halo core: radii from sub-pixel to 30 px around one point
+        n, grid = 600, (72, 64, 96)
+        pos = 35.0 + rng.normal(0, 2.0, (n, 3))
+        rpx = np.exp(rng.uniform(np.log(0.2), np.log(30), n))
+    w = rng.uniform(0.5, 1.5, n)
+    if case == "signed_weights":
+        w[::3] = 0.0
+        w[1::3] *= -1.0
+    return [torch.from_numpy(a.astype(np.float32)) for a in (pos, w, rpx)] + [
+        grid]
+
+
+def _dense_pair(cuda, pos, w, rpx, grid, subsample=4):
+    """(kernel, plain twin, plain twin with |w|), all on the card."""
+    from nbodyhpc_tpu_torch.ops import splat_dense as sd
+
+    pos, w, rpx = (t.to(cuda) for t in (pos, w, rpx))
+    before = _launches("splat.dense")
+    got = sd.splat_volume_dense(pos, w, rpx, grid, subsample,
+                                vol0=torch.zeros(grid, device=cuda))
+    assert _launches("splat.dense") == before + 1
+    mr = float(rpx.max())
+    want = sd.dense_reference(pos, w, rpx, torch.zeros(grid, device=cuda),
+                              subsample, mr)
+    mag = sd.dense_reference(pos, w.abs(), rpx,
+                             torch.zeros(grid, device=cuda), subsample, mr)
+    torch.cuda.synchronize()
+    return got, want, mag
+
+
+@pytest.mark.parametrize("case", ["large", "faces", "small_grid",
+                                  "signed_weights", "halo_core"])
+def test_dense_kernel_matches_plain(cuda, case):
+    """The kernel against its plain twin. Each voxel's terms are the
+    twin's to the bit; only the order of the sums differs (shared-memory
+    atomics, then one add into the volume, against the twin's index_add
+    in chunk order), so a voxel may differ by the rounding of a float32 sum
+    of its n terms in two orders: here 16 sqrt(n) ulps of the sum of their
+    magnitudes, and exactly 0 where no row reaches."""
+    pos, w, rpx, grid = _dense_rows(case, np.random.default_rng(7))
+    got, want, mag = _dense_pair(cuda, pos, w, rpx, grid)
+    assert float(mag.sum()) > 0
+    tol = 16 * np.sqrt(pos.shape[0]) * torch.finfo(torch.float32).eps * mag
+    assert bool(((got - want).abs() <= tol).all()), float(
+        ((got - want).abs() - tol).max())
+    assert torch.equal(got == 0, want == 0) or case == "signed_weights"
+
+
+@pytest.mark.parametrize("subsample", [4, 3])
+def test_dense_kernel_bit_equal_without_overlap(cuda, subsample):
+    """Rows whose windows never meet: one term a voxel, so the kernel is
+    bit-equal to its twin (S = 3 takes the kernel's runtime-S path)."""
+    rng = np.random.default_rng(3)
+    centres = np.stack(np.meshgrid(*[np.arange(3)] * 3, indexing="ij"),
+                       -1).reshape(-1, 3) * 44.0 + 22.0
+    pos = torch.from_numpy((centres + rng.uniform(-0.5, 0.5, centres.shape))
+                           .astype(np.float32))
+    rpx = torch.from_numpy(rng.uniform(15.2, 18.0, 27).astype(np.float32))
+    w = torch.from_numpy(rng.uniform(0.5, 1.5, 27).astype(np.float32))
+    got, want, _ = _dense_pair(cuda, pos, w, rpx, (132, 132, 132), subsample)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_dense_kernel_adds_onto_the_volume(cuda):
+    """Through the render's engine: the dense rows add onto the buckets'
+    deposits in place, and ``render.dense_voxels`` counts their spheres."""
+    import math
+
+    g = 80
+    rng = np.random.default_rng(11)
+    pos, w, rpx = _particles(4000, 21, rpx_hi=12.0)
+    rpx[:40] = torch.from_numpy(rng.uniform(15.5, 35.0, 40).astype(np.float32))
+    r = rpx / g
+    c0 = profiling.counters()
+    got = sc.splat_volume(pos.to(cuda), w.to(cuda), r.to(cuda), float(g),
+                          (g,) * 3)
+    c1 = profiling.counters()
+    want = sc.splat_volume(pos, w, r, float(g), (g,) * 3)
+    torch.testing.assert_close(got.cpu(), want, rtol=RTOL, atol=ATOL)
+    rp = (r * np.float32(g)).numpy()
+    dense = rp[rp > 15.0]
+    assert c1["render.dense_rows"] - c0.get("render.dense_rows", 0) == 40
+    assert c1["splat.dense.launches"] - c0.get("splat.dense.launches", 0) == 1
+    want_vox = sum(math.ceil(float(np.float32(sc.FOUR_THIRDS_PI)
+                                   * np.float32(v * v * v))) for v in dense)
+    got_vox = c1["render.dense_voxels"] - c0.get("render.dense_voxels", 0)
+    assert abs(got_vox - want_vox) <= len(dense)
+
+
+def test_dense_kernel_rows_off_the_grid(cuda):
+    """Rows whose windows miss the grid, and rows of zero weight, bin into
+    no tile: the wrapper reads an empty list and launches no deposit."""
+    from nbodyhpc_tpu_torch.ops import splat_dense as sd
+
+    pos = torch.tensor([[-60.0, 5.0, 5.0], [5.0, 90.0, 5.0], [8.0, 8.0, 8.0]],
+                       device=cuda)
+    w = torch.tensor([1.0, 1.0, 0.0], device=cuda)
+    rpx = torch.tensor([20.0, 30.0, 16.0], device=cuda)
+    vol = torch.full((32, 40, 24), 0.5, device=cuda)
+    before = _launches("splat.dense")
+    out = sd.splat_volume_dense(pos, w, rpx, vol.shape, 4, vol0=vol)
+    torch.cuda.synchronize()
+    assert out is vol and bool((vol == 0.5).all())
+    assert _launches("splat.dense") == before

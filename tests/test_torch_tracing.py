@@ -47,6 +47,8 @@ PARENT = {
     "nbodyhpc.knn.rung": "nbodyhpc.knn.ladder",
     "nbodyhpc.knn.brute": "nbodyhpc.knn.ladder",
 }
+#: spans only a card's calls open: the dense kernel's binning
+CARD_PARENT = {"nbodyhpc.render.dense.bin": "nbodyhpc.render.dense"}
 
 #: the benchmark's span readers: (span, public call)
 READERS = {
@@ -316,8 +318,9 @@ def test_reader_is_none_without_a_public_call(card_clock, monkeypatch, name):
 
 @pytest.mark.cuda
 def test_device_ms_on_the_card():
-    """On the card every span has device time, and each span's device time
-    is at least its children's (event pairs on one stream nest)."""
+    """On the card every span, the card's own included, opens in its parent
+    and has device time, and each span's device time is at least its
+    children's (event pairs on one stream nest)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (and nvcc for sm_90a)")
     _calls("cuda")  # builds the kernels
@@ -325,10 +328,13 @@ def test_device_ms_on_the_card():
     with torch.profiler.profile(activities=CPU):
         _calls("cuda")
     totals = profiling.span_totals()
-    assert set(totals) == set(PARENT)
+    assert set(totals) == set(PARENT) | set(CARD_PARENT)
+    recs = profiling.records()
+    for r in recs:
+        parent = None if r.parent is None else recs[r.parent].name
+        assert parent == {**PARENT, **CARD_PARENT}[r.name], r.name
     for name, t in totals.items():
         assert t.device_ms > 0, name
-    recs = profiling.records()
     ms = [r.events[0].elapsed_time(r.events[1]) for r in recs]
     children = [0.0] * len(recs)
     for i, r in enumerate(recs):
