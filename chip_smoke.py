@@ -278,6 +278,26 @@ def b3_bytes(points: int, nq: int, k: int) -> int:
     return 12 * points + 12 * nq + 8 * k * nq
 
 
+def ladder_bytes(stats, nq: int, k: int) -> float:
+    """The ladder kernel's bytes for these rows: each slot it scores (12 B)
+    and each cell's two offsets (8 B), summed over the rungs each row walks,
+    each query read once (12 B), each result written once (8 B per entry,
+    13 B of flag and counters a row)."""
+    cells, points = (float(s.double().sum()) for s in stats[:2])
+    return 12 * points + 8 * cells + 12 * nq + (8 * k + 13) * nq
+
+
+def ladder_states_equal(got, want) -> bool:
+    """Two ladder states (d2, slot, conv, stats) agree: the finite d2 bit
+    for bit and their slots, conv, and the three statistics."""
+    fin = torch.isfinite(want[0])
+    return (torch.equal(torch.isfinite(got[0]), fin)
+            and bits_equal(got[0][fin], want[0][fin])
+            and torch.equal(got[1].long()[fin], want[1].long()[fin])
+            and torch.equal(got[2], want[2])
+            and all(torch.equal(g, w) for g, w in zip(got[3], want[3])))
+
+
 def window_work(cl, plan, st):
     """The window of the staged queries at these inputs, counted on the
     card: (pairs [Q] int64, points). Pairs: per sorted query, the points of
@@ -865,6 +885,11 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
     ladder_q = kd.query_blocks_device.ladder_queries
     if b3_launches == 0:
         fail("kNN-3: B3 was not launched on the main path")
+    lad_launches = _launches()["knn_ladder"]
+    if (lad_launches != int(ladder_q > 0) or ladder_q != profiling.counters()
+            .get("knn.ladder.kernel_rows", 0)):
+        fail(f"kNN-3: {lad_launches} ladder kernel launches for {ladder_q} "
+             f"ladder rows")
     if d.shape != (KNN_Q, KNN_K) or idx.dtype != torch.int32:
         fail(f"kNN-3: result {tuple(d.shape)} {idx.dtype}")
     if not bool((d[:, 0] == 0).all()):
@@ -914,6 +939,49 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
         f"{t_b3:.3f}, epilogue {t_epi:.3f}, unconverged {t_bad:.3f}, ladder "
         f"({bad.numel()} queries) {t_lad:.3f}; query_device {qd_ms:.3f} ms "
         f"= {KNN_Q / qd_ms * 1e3:.0f} q/s")
+    # the ladder's rungs on those rows through the kernel and through its
+    # torch twin, in turns (wall ms, the device drained around each)
+    ladder = knn.default_ladder(cl)
+    qbad = st.qs[bad].contiguous()
+    turns, states = {"kernel": [], "twin": []}, {}
+    for who in ("twin", "kernel", "kernel", "twin"):
+        states[who], ms = synced(
+            (lambda: kc.knn_ladder(cl, qbad, KNN_K, ladder)) if who == "kernel"
+            else (lambda: knn.ladder_rungs(cl, qbad, KNN_K, ladder)))
+        turns[who].append(ms)
+    if not ladder_states_equal(states["kernel"], states["twin"]):
+        fail("kNN-3: the ladder kernel's rung state differs from the torch "
+             "rungs'")
+    lad_ms = cuda_ms(lambda: kc.knn_ladder(cl, qbad, KNN_K, ladder), 50)
+    lad_plain_ms = cuda_ms(
+        lambda: knn.ladder_rungs(cl, qbad, KNN_K, ladder), 5)
+    lad_bound_ms, lad_bound_by = bound(
+        ladder_bytes(states["kernel"][3], qbad.shape[0], KNN_K))
+    log(f"kNN-3: ladder rungs on those {qbad.shape[0]} rows, ladder "
+        f"{ladder} ({smi}), wall ms in turns: kernel {turns['kernel']}, "
+        f"torch rungs {turns['twin']}; rung states equal; device ms: kernel "
+        f"{lad_ms:.4f} (bound {lad_bound_ms:.6f}, {lad_bound_by}), torch "
+        f"rungs {lad_plain_ms:.3f}")
+    # every self-query through the kernel: its rate where each row walks the
+    # ladder (the twin's answer on a sample)
+    all_state = kc.knn_ladder(cl, queries, KNN_K, ladder)
+    rows = torch.randperm(KNN_Q, generator=gen, device=dev)[:2048]
+    if not ladder_states_equal(
+            tuple(t[rows] for t in all_state[:3])
+            + (tuple(s[rows] for s in all_state[3]),),
+            knn.ladder_rungs(cl, queries[rows], KNN_K, ladder)):
+        fail("kNN-3: the ladder kernel on every self-query differs from the "
+             "torch rungs on a sample of 2048")
+    all_ms = cuda_ms(lambda: kc.knn_ladder(cl, queries, KNN_K, ladder), 3)
+    all_bound_ms, all_bound_by = bound(
+        ladder_bytes(all_state[3], KNN_Q, KNN_K))
+    log(f"kNN-3: ladder kernel on all {KNN_Q} self-queries ({smi}): "
+        f"{all_ms:.3f} ms, bound {all_bound_ms:.4f} ms ({all_bound_by}), "
+        f"share {all_bound_ms / all_ms:.4f}; {int(all_state[2].sum())} rows "
+        f"converged, mean cells scanned "
+        f"{float(all_state[3][0].float().mean()):.2f}; a sample of 2048 "
+        f"equals the torch rungs")
+    del all_state, states
     busy_ms, wall_ms, top = device_busy_ms(
         lambda: tree.query_device(queries, k=KNN_K))
     idle = 1 - busy_ms / wall_ms
@@ -1053,6 +1121,14 @@ def knn_phases(dev: torch.device, gen: torch.Generator, smi: str,
          "launches": b4_launches, "max_abs_err": b4_err,
          "ms": b4_ms, "plain_ms": b4_plain_ms,
          "bound_ms": b4_bound_ms, "bound_by": b4_bound_by,
+         "library_ms": None},
+        {"name": "knn_ladder", "route": "cuda",
+         "source": "nbodyhpc_tpu_torch/csrc/knn_ladder.cu",
+         "replaces": "none (the ladder of nbodyhpc_tpu/ops/knn.py is plain "
+                     "XLA)",
+         "launches": lad_launches, "max_abs_err": 0.0,
+         "ms": lad_ms, "plain_ms": lad_plain_ms,
+         "bound_ms": lad_bound_ms, "bound_by": lad_bound_by,
          "library_ms": None},
     ], (tree, queries, d, idx)
 
@@ -1260,19 +1336,23 @@ def cancel_phase(path: str, renderer, ref_host, harness, smi: str):
     streamed render of phase 6's file; each must raise
     ``KeyboardInterrupt`` before 80% of its uninterrupted time, and the
     next call must be right: kNN-3's answer bit for bit through the kernel
-    route, phase 6's field within rtol/atol with no reader thread left."""
+    route, phase 6's field within rtol/atol with no reader thread left.
+    The ladder runs at k = 129, above the ladder kernel's k: its torch
+    rungs' chunk loop is what a signal can stop (the kernel is one
+    launch)."""
     from nbodyhpc_tpu_torch.cli import rasterizer_demo as demo
-    from nbodyhpc_tpu_torch.ops import knn
+    from nbodyhpc_tpu_torch.ops import knn, knn_cuda as kc
 
     t_phase = time.perf_counter()
     tree, queries, d3, i3 = harness
+    k7 = kc.TOPK_MAX + 1
     q = queries
-    _, full_ms = synced(lambda: tree.query_device(q, KNN_K, engine="ladder"))
+    _, full_ms = synced(lambda: tree.query_device(q, k7, engine="ladder"))
     while full_ms < 1000.0:
         q = torch.cat([q, q])
-        _, full_ms = synced(lambda: tree.query_device(q, KNN_K,
+        _, full_ms = synced(lambda: tree.query_device(q, k7,
                                                       engine="ladder"))
-    ms = interrupted_ms(lambda: tree.query_device(q, KNN_K, engine="ladder"),
+    ms = interrupted_ms(lambda: tree.query_device(q, k7, engine="ladder"),
                         full_ms)
     profiling.reset()
     d, idx = tree.query_device(queries, KNN_K)
@@ -1282,7 +1362,7 @@ def cancel_phase(path: str, renderer, ref_host, harness, smi: str):
         fail("phase 7: the k-NN answer after the interrupt differs from "
              "kNN-3's")
     chunk = knn.ladder_chunk(knn.default_ladder(tree._tree))
-    log(f"phase 7: ladder query_device of {q.shape[0]} queries k={KNN_K} "
+    log(f"phase 7: ladder query_device of {q.shape[0]} queries k={k7} "
         f"in {-(-q.shape[0] // chunk)} chunks of {chunk} ({smi}): "
         f"{full_ms:.3f} ms; SIGINT at 40% -> KeyboardInterrupt "
         f"after {ms:.3f} ms ({ms / full_ms:.3f} of the call); the next "
@@ -1334,7 +1414,7 @@ SHARDED_SPEC = {
 # neighbour distance (~0.0073 at 1e7 points)
 CDF_K, CDF_RMAX, CDF_NR = (1, 2, 4, 8, 16), 0.012, 64
 SHARDED_KERNELS = ("splat_align", "splat_deposit", "splat_dense", "knn_topk",
-                   "knn_select", "knn_dist")
+                   "knn_select", "knn_dist", "knn_ladder")
 
 
 def _launches() -> dict:

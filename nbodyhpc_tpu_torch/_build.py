@@ -67,6 +67,12 @@ SIGNATURES = {
     # ... out_d2 out_slot k row_base stream
     "knn_select": (_P, _LL, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _I, _F, _F,
                    _F, _F, _F, _F, _P, _P, _I, _I, _P),
+    # queries nq offsets xyz npad periodic L0 L1 L2 iL0 iL1 iL2 C0 C1 C2 lo0
+    # lo1 lo2 h0 h1 h2 ih0 ih1 ih2 nrungs r0 cap0 r1 cap1 r2 cap2 r3 cap3 k
+    # out_d2 out_slot out_conv out_stats stream
+    "knn_ladder": (_P, _I, _P, _P, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I,
+                   _I, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I,
+                   _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 

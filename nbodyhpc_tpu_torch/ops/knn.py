@@ -19,7 +19,10 @@ the min-image wrap in the passes, ``(dx*dx + dy*dy) + dz*dz`` in
 :func:`brute_force_knn`.
 
 The kernel route (``use_kernel``) answers large batches on a CUDA device
-through :mod:`.knn_device` and finishes its unconverged queries here.
+through :mod:`.knn_device` and finishes its unconverged queries here. On a
+CUDA device, and for ``k <= 128``, the ladder's rungs are one kernel
+(:func:`.knn_cuda.knn_ladder`); the torch rungs (:func:`ladder_rungs`) are
+its plain twin, and run on the CPU and for larger ``k``.
 """
 from __future__ import annotations
 
@@ -368,16 +371,27 @@ def default_ladder(tree: CellList):
 
 
 def ladder_chunk(ladder) -> int:
-    """Queries per ladder call: bounds the biggest pass's [chunk, M, ccap]
-    candidate block at ``1 << 25`` elements (at least 2048, at most 65536
-    queries)."""
+    """Queries per torch ladder call, and per brute pass of the rows it
+    leaves: bounds the biggest pass's [chunk, M, ccap] candidate block at
+    ``1 << 25`` elements (at least 2048, at most 65536 queries)."""
     bmax = max(((2 * r + 1) ** 3) * c for r, c in ladder)
     return min(65536, max(2048, (1 << 25) // bmax))
 
 
-def _ladder_query(tree: CellList, queries, k: int, ladder):
-    """The ladder on one chunk, finished by the streaming brute-force pass
-    where it cannot certify: returns (d2, slot, stats)."""
+def ladder_on_kernel(tree: CellList, k: int) -> bool:
+    """Whether the ladder's rungs run as one CUDA kernel
+    (:func:`.knn_cuda.knn_ladder`): a tree on a CUDA device and ``k <=
+    TOPK_MAX``. Otherwise :func:`ladder_rungs` runs them in torch."""
+    from .knn_cuda import TOPK_MAX
+
+    return tree.device.type == "cuda" and k <= TOPK_MAX
+
+
+def ladder_rungs(tree: CellList, queries, k: int, ladder):
+    """The ladder's rungs in torch, the plain twin of the ladder kernel:
+    (d2 [Q, k], slot [Q, k] int64, conv [Q], (cells_scanned,
+    points_visited, cells_pruned)) after every rung some row still needed,
+    with a host sync between rungs. ``queries`` (Q, 3) unwrapped."""
     Q = queries.shape[0]
     dev = queries.device
     qw, qcell = query_cells(tree, queries)
@@ -392,7 +406,20 @@ def _ladder_query(tree: CellList, queries, k: int, ladder):
     for r, budget in ladder[1:]:
         if bool((~state[2]).any()):
             state = _cube_pass(tree, qw, qcell, k, r, budget, state)
-    d2, slot, conv, stats = state
+    return state
+
+
+def _ladder_query(tree: CellList, queries, k: int, ladder, on_kernel: bool):
+    """The ladder on one batch, finished by the streaming brute-force pass
+    where it cannot certify, ``ladder_chunk`` rows at a time, so its
+    candidate blocks stay bounded: returns (d2, slot, stats)."""
+    if on_kernel:
+        from .knn_cuda import knn_ladder
+
+        d2, slot, conv, stats = knn_ladder(tree, queries.contiguous(), k,
+                                           ladder)
+    else:
+        d2, slot, conv, stats = ladder_rungs(tree, queries, k, ladder)
     if bool((~conv).any()):
         bad = torch.nonzero(~conv).squeeze(1)
         box = None
@@ -400,9 +427,14 @@ def _ladder_query(tree: CellList, queries, k: int, ladder):
             L = np.asarray(tree.dims, np.float32) * np.asarray(tree.cell_size,
                                                                np.float32)
             box = [float(v) for v in L]
-        d2f, slotf = _streaming_brute_pass(tree.xyz, tree.n, qw[bad], k, box)
-        d2 = d2.index_copy(0, bad, d2f)
-        slot = slot.index_copy(0, bad, slotf)
+        step = ladder_chunk(ladder)
+        parts = [_streaming_brute_pass(tree.xyz, tree.n,
+                                       query_cells(tree, queries[rows])[0], k,
+                                       box)
+                 for rows in bad.split(step)]
+        d2 = d2.index_copy(0, bad, torch.cat([p[0] for p in parts]))
+        slot = slot.index_copy(0, bad, torch.cat([p[1] for p in parts])
+                               .to(slot.dtype))
         pv = stats[1].index_add(0, bad, torch.full_like(bad, tree.n,
                                                         dtype=torch.int32))
         stats = (stats[0], pv, stats[2])  # brute-forced queries pruned nothing
@@ -420,18 +452,22 @@ def finish_indices(tree: CellList, d2, slot):
 def ladder_knn(tree: CellList, queries, k: int,
                with_stats: bool = False) -> KnnResult:
     """Exact k-NN through the ladder alone, chunked so the biggest pass's
-    candidate block stays bounded. ``queries`` (Q, 3) on the tree's device."""
+    candidate block stays bounded (the ladder kernel builds none and takes
+    the batch at once; its brute pass is chunked). ``queries`` (Q, 3) on
+    the tree's device."""
     with profiling.span("nbodyhpc.knn.ladder"):
         return _ladder_knn(tree, queries, k, with_stats)
 
 
 def _ladder_knn(tree: CellList, queries, k: int, with_stats: bool):
     ladder = default_ladder(tree)
-    csize = ladder_chunk(ladder)
+    on_kernel = ladder_on_kernel(tree, k)
+    # the kernel builds no candidate block, so it takes the batch at once
+    csize = max(queries.shape[0], 1) if on_kernel else ladder_chunk(ladder)
     dists, idxs, cs, pv, cp = [], [], [], [], []
     for s in range(0, queries.shape[0], csize):
         d2, slot, stats = _ladder_query(tree, queries[s:s + csize], k,
-                                        ladder)
+                                        ladder, on_kernel)
         d, gi = finish_indices(tree, d2, slot)
         dists.append(d)
         idxs.append(gi)

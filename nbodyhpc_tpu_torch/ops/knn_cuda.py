@@ -25,15 +25,22 @@ piece is the ``c``-th point of that concatenation.
     (not ``torch.topk``, which orders ties arbitrarily) and decodes
     candidate positions to tree slots. The engine takes it for ``k > 256``.
 
-Shared inputs: ``q`` float32 [3, Q] (query rows, sorted so each piece's
-queries are consecutive), per piece ``piece_q0`` (first query row),
-``piece_qn`` (query count, <= QB) and ``piece_pid`` (plan row), the plan's
-``run_start``/``run_len`` int32 [rows, R <= 36], the tree's ``xyz`` float32
-[4, npad], and ``box`` (the periodic lengths, or zeros). Output row
+A third kernel answers the ladder's rows (:func:`knn_ladder`, kernel
+``csrc/knn_ladder.cu``; no TPU counterpart, the JAX ladder is plain XLA):
+every rung of :func:`.knn.default_ladder` for each row in one launch, the
+function of :func:`.knn.ladder_rungs`, its plain twin. It takes the tree,
+not a plan's pieces.
+
+Shared inputs of B3 and B4: ``q`` float32 [3, Q] (query rows, sorted so
+each piece's queries are consecutive), per piece ``piece_q0`` (first query
+row), ``piece_qn`` (query count, <= QB) and ``piece_pid`` (plan row), the
+plan's ``run_start``/``run_len`` int32 [rows, R <= 36], the tree's ``xyz``
+float32 [4, npad], and ``box`` (the periodic lengths, or zeros). Output row
 ``piece_q0[p] - row_base + t`` answers query ``piece_q0[p] + t``.
 
-Each wrapper runs its plain PyTorch version for CPU tensors, and for CUDA
-tensors launches its kernel or raises; the counter
+Each wrapper runs its plain PyTorch version for CPU tensors (but
+:func:`knn_ladder`, which takes a CUDA tree only), and for CUDA tensors
+launches its kernel or raises; the counter
 ``knn.<kernel>.launches`` (:func:`..utils.profiling.count`) counts kernel
 launches only.
 """
@@ -405,3 +412,85 @@ def knn_topk(q, piece_q0, piece_qn, piece_pid, run_start, run_len, xyz, box,
     profiling.count("knn.topk.launches")
     _build.check(err, "knn_topk launch")
     return out_d, out_s
+
+
+# ---------------------------------------------------------------------------
+# The ladder's rows: every rung in one launch
+# ---------------------------------------------------------------------------
+
+#: rungs the ladder kernel takes (:func:`.knn.default_ladder` gives at most 4)
+LADDER_RUNGS = 4
+
+
+def ladder_args(ladder, npad: int):
+    """The ladder kernel's rung arguments: (count, r0, ccap0, ..., r3,
+    ccap3), each slice cap cut to ``npad`` as the torch rungs cut it, the
+    rungs past ``count`` zero."""
+    _require(1 <= len(ladder) <= LADDER_RUNGS,
+             f"knn_ladder: the kernel takes 1 to {LADDER_RUNGS} rungs, "
+             f"got {len(ladder)}")
+    flat = []
+    for r, cap in ladder:
+        _require(int(r) >= 1 and int(cap) >= 1,
+                 f"knn_ladder: rung {(r, cap)} needs r >= 1 and a cap >= 1")
+        flat += [int(r), min(int(cap), npad)]
+    return (len(ladder), *flat, *(0,) * (2 * (LADDER_RUNGS - len(ladder))))
+
+
+def knn_ladder(tree, queries, k: int, ladder):
+    """The ladder's rungs for every query row: (d2 [Q, k] float32 ascending,
+    slot [Q, k], conv [Q] bool, (cells_scanned, points_visited,
+    cells_pruned) int32 [Q] each), the state :func:`.knn.ladder_rungs`
+    leaves. Only finite d2 carry a slot (the kernel writes -1 past them);
+    unconverged rows hold their last rung's answer. ``queries`` float32
+    (Q, 3) on the tree's device, unwrapped; ``k <= TOPK_MAX``.
+
+    Kernel ``csrc/knn_ladder.cu``, for a tree on a CUDA device only (no
+    TPU counterpart: the JAX ladder is plain XLA; :func:`.knn._ladder_query`
+    runs the plain twin :func:`.knn.ladder_rungs` elsewhere). Bound by
+    latency at the few rows the kernel route leaves: one warp per row walks
+    its cube's cells and scores 32 consecutive candidates at a time. Counters
+    ``knn.ladder.launches`` and ``knn.ladder.kernel_rows`` (rows answered
+    by the kernel)."""
+    _require(1 <= k <= TOPK_MAX, f"knn_ladder: k must be in [1, {TOPK_MAX}]")
+    rungs = ladder_args(ladder, tree.npad)
+    dev = tree.xyz.device
+    _require(queries.device == dev,
+             f"knn_ladder: queries on {queries.device}, the tree on {dev}")
+    _require(queries.dtype == torch.float32 and queries.dim() == 2
+             and queries.shape[1] == 3,
+             "knn_ladder: queries must be float32 (Q, 3)")
+    _require(dev.type == "cuda", f"knn_ladder: unsupported device {dev}")
+    for tname, t, dt in (("queries", queries, torch.float32),
+                         ("xyz", tree.xyz, torch.float32),
+                         ("offsets", tree.offsets, torch.int32)):
+        _require(t.dtype == dt and t.is_contiguous() and t.device == dev,
+                 f"knn_ladder: {tname} must be contiguous {dt} on {dev}")
+    _require(tree.xyz.dim() == 2 and tree.xyz.shape[0] == 4,
+             "knn_ladder: xyz must be [4, npad]")
+    _require(tree.offsets.shape == (tree.ncells + 1,),
+             "knn_ladder: offsets must be [ncells + 1]")
+    Q = queries.shape[0]
+    out_d = torch.empty((Q, k), dtype=torch.float32, device=dev)
+    out_s = torch.empty((Q, k), dtype=torch.int32, device=dev)
+    conv = torch.empty((Q,), dtype=torch.bool, device=dev)
+    stats = torch.empty((3, Q), dtype=torch.int32, device=dev)
+    if Q:
+        box = ([float(d) * float(h) for d, h in zip(tree.dims,
+                                                    tree.cell_size)]
+               if tree.periodic else [0.0] * 3)
+        h = np.asarray(tree.cell_size, np.float32)
+        err = _build.load().lib.knn_ladder(
+            queries.data_ptr(), Q, tree.offsets.data_ptr(),
+            tree.xyz.data_ptr(), tree.npad, *_box_args(box),
+            *(int(v) for v in tree.dims), *(float(v) for v in tree.lo),
+            *(float(v) for v in h),
+            # query_cells' 1/h: a float32 division
+            *(float(v) for v in np.float32(1.0) / h),
+            *rungs, k, out_d.data_ptr(), out_s.data_ptr(), conv.data_ptr(),
+            stats.data_ptr(), _stream(queries),
+        )
+        profiling.count("knn.ladder.launches")
+        profiling.count("knn.ladder.kernel_rows", Q)
+        _build.check(err, "knn_ladder launch")
+    return out_d, out_s, conv, (stats[0], stats[1], stats[2])

@@ -1,6 +1,7 @@
 """The k-NN candidate kernels (B3 ``knn_topk``; B4's two sinks ``knn_select``
-and ``knn_dist``) against their plain PyTorch versions on the card, and
-``KDTree`` on the card against ``KDTree`` on the CPU.
+and ``knn_dist``) and the ladder kernel (``knn_ladder``) against their plain
+PyTorch versions on the card, and ``KDTree`` on the card against ``KDTree``
+on the CPU.
 
 Every test here needs an NVIDIA Hopper GPU and ``nvcc`` (marker ``cuda``)
 and skips without a CUDA device. The file imports torch only, so it runs on
@@ -8,6 +9,8 @@ a machine without JAX:
 
     python -m pytest tests/test_torch_knn_cuda.py -q --noconftest -p no:cacheprovider
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -15,6 +18,7 @@ import torch
 import test_torch_knn_select as select
 import test_torch_knn_window as window
 from nbodyhpc_tpu_torch.kdtree import KDTree
+from nbodyhpc_tpu_torch.ops import knn
 from nbodyhpc_tpu_torch.ops import knn_cuda as kc
 from nbodyhpc_tpu_torch.ops import knn_device as kd
 from nbodyhpc_tpu_torch.utils import profiling
@@ -259,3 +263,208 @@ def test_kdtree_on_the_card_equals_the_cpu(cuda, periodic, k):
     nd, ni = gpu.query(q, k=k)
     assert np.array_equal(nd, d.cpu().numpy())
     assert np.array_equal(ni, i.cpu().numpy().astype(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# the ladder kernel against its torch twin
+# ---------------------------------------------------------------------------
+
+LADDER_CASES = ("uniform", "void", "clustered", "overflow", "clamped", "far",
+                "tiny")
+
+
+def _ladder_case(case, periodic):
+    """(CPU tree, CPU queries) of each ladder case: ``uniform`` (k = 128
+    reaches r = 2), ``void`` (queries inside an empty ball of ~3 cells:
+    r = 4, whose cube spans a whole axis of 8 cells), ``clustered`` (1,500
+    points in a few cells: the capacity rung),
+    ``overflow`` (3,000 points in one cell: every rung overflows, the brute
+    pass answers), ``clamped`` (padding cut to 8 slots, so the last cells'
+    windows clamp at npad), ``far`` (queries 100 boxes off: the brute
+    pass), ``tiny`` (30 points: k may exceed n)."""
+    rng = np.random.Generator(np.random.Philox(21))
+    # 19,960 points: cut to 8 slots past them, the padding stays a multiple
+    # of 128
+    pts = rng.random((19_960, 3)).astype(np.float32)
+    q = rng.random((300, 3)).astype(np.float32)
+    if case == "void":  # 8 cells a side
+        pts = pts[:5000][np.linalg.norm(pts[:5000] - 0.5, axis=1) > 0.35]
+        q = (0.5 + 0.02 * rng.standard_normal((40, 3))).astype(np.float32)
+    elif case in ("clustered", "overflow"):
+        n, s = (1_500, 0.003) if case == "clustered" else (3_000, 1e-4)
+        # about the centre of a cell of the 14 a side
+        clu = (0.535 + s * rng.standard_normal((n, 3))).astype(np.float32)
+        pts = np.concatenate([pts, clu])
+        q = np.concatenate([q[:100], clu[:100] + np.float32(0.002)])
+    elif case == "far":
+        q = q[:20] + np.float32(100.0)
+    elif case == "tiny":
+        pts = pts[:30]
+        q = q[:40]
+    if case != "far":
+        q = q * np.float32(1.2) - np.float32(0.1)  # some outside the box
+    tree = KDTree(pts, boxsize=1.0 if periodic else None, device="cpu")._tree
+    if case == "clamped":
+        keep = tree.n + 8
+        tree = dataclasses.replace(tree,
+                                   xyz=tree.xyz[:, :keep].contiguous(),
+                                   index=tree.index[:keep].contiguous())
+        q = np.concatenate([q, pts.max(0, keepdims=True)])  # the last cells
+    return tree, torch.from_numpy(np.ascontiguousarray(q))
+
+
+def _tree_on(tree, dev):
+    return dataclasses.replace(tree, xyz=tree.xyz.to(dev),
+                               index=tree.index.to(dev),
+                               offsets=tree.offsets.to(dev))
+
+
+def _stop_rung(tree, q, k, ladder):
+    """Each row's converging rung by the twin (len(ladder): none)."""
+    stop = torch.full((q.shape[0],), len(ladder), dtype=torch.int64)
+    for i in range(len(ladder) - 1, -1, -1):
+        conv = knn.ladder_rungs(tree, q, k, ladder[:i + 1])[2]
+        stop[conv] = i
+    return stop
+
+
+def _state_equal(got, want):
+    """The rung states agree: finite d2 bit for bit and their slots, conv,
+    and the three statistics."""
+    gd, gs, gc, gst = (t.cpu() if torch.is_tensor(t) else
+                       tuple(s.cpu() for s in t) for t in got)
+    wd, ws, wc, wst = (t.cpu() if torch.is_tensor(t) else
+                       tuple(s.cpu() for s in t) for t in want)
+    fin = torch.isfinite(wd)
+    assert torch.equal(torch.isfinite(gd), fin)
+    assert _bit_equal(gd[fin], wd[fin])
+    assert torch.equal(gs.long()[fin], ws.long()[fin])
+    assert torch.equal(gc, wc)
+    for g, w in zip(gst, wst):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("k", [1, 16, 128])
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("case", LADDER_CASES)
+def test_ladder_kernel_equals_the_torch_rungs(cuda, case, periodic, k):
+    tree, q = _ladder_case(case, periodic)
+    ladder = knn.default_ladder(tree)
+    card, qc = _tree_on(tree, cuda), q.to(cuda)
+    before = _launches("knn.ladder")
+    rows = profiling.counters().get("knn.ladder.kernel_rows", 0)
+    got = kc.knn_ladder(card, qc, k, ladder)
+    assert _launches("knn.ladder") == before + 1
+    assert profiling.counters()["knn.ladder.kernel_rows"] == rows + len(q)
+    _state_equal(got, knn.ladder_rungs(card, qc, k, ladder))
+    _state_equal(got, knn.ladder_rungs(tree, q, k, ladder))
+
+    # the case reaches what it is there for
+    stop = _stop_rung(tree, q, k, ladder)
+    if case == "uniform" and k == 128:
+        assert bool((stop >= 1).any())
+    if case == "void":
+        assert ladder[-1][0] == 4 and 2 * 4 + 1 > int(tree.dims.max())
+        assert bool((stop == len(ladder) - 1).any())
+    if case == "clustered":
+        assert ladder[1][0] == 1 and ladder[1][1] > 256
+        assert bool((stop == 1).any())
+    if case == "overflow" or (case == "far" and not periodic):
+        assert bool((stop == len(ladder)).any())
+    if case == "clamped":  # the last cell's window, read by the last query
+        assert int(tree.offsets[-2]) > tree.npad - ladder[0][1]
+
+    # the whole ladder, brute pass included, against the CPU's
+    before = _launches("knn.ladder")
+    res = knn.ladder_knn(card, qc, k, with_stats=True)
+    assert _launches("knn.ladder") == before + 1
+    want = knn.ladder_knn(tree, q, k, with_stats=True)
+    assert _bit_equal(res.distances.cpu(), want.distances)
+    assert torch.equal(res.indices.cpu(), want.indices)
+    for g, w in zip(res.stats, want.stats):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_ladder_kernel_empty_batch_and_large_k(cuda):
+    tree, q = _ladder_case("uniform", True)
+    card = _tree_on(tree, cuda)
+    ladder = knn.default_ladder(tree)
+    before = _launches("knn.ladder")
+    empty = torch.empty((0, 3), device=cuda)
+    d2, slot, conv, stats = kc.knn_ladder(card, empty, 16, ladder)
+    assert d2.shape == (0, 16) and conv.shape == (0,)
+    assert all(s.shape == (0,) for s in stats)
+    res = knn.ladder_knn(card, empty, 16, with_stats=True)
+    assert res.distances.shape == (0, 16) and res.indices.shape == (0, 16)
+    assert _launches("knn.ladder") == before  # nothing launched
+    # k above the kernel's: the torch rungs on the card, no launch
+    rungs = profiling.counters().get("knn.rungs", 0)
+    res = knn.ladder_knn(card, q.to(cuda), kc.TOPK_MAX + 1, with_stats=True)
+    assert _launches("knn.ladder") == before
+    assert profiling.counters()["knn.rungs"] > rungs
+    want = knn.ladder_knn(tree, q, kc.TOPK_MAX + 1, with_stats=True)
+    assert _bit_equal(res.distances.cpu(), want.distances)
+    assert torch.equal(res.indices.cpu(), want.indices)
+
+
+@pytest.mark.parametrize("k", [16, 128])
+def test_ladder_kernel_rows_reach_the_brute_pass_a_chunk_at_a_time(
+        cuda, monkeypatch, k):
+    """Over four chunks of rows no rung certifies (queries 100 boxes off a
+    plain tree): the kernel takes them in one launch, the brute pass
+    ``ladder_chunk`` rows at a time; the answer is one brute pass's over
+    every row, in under half its peak memory."""
+    tree, _ = _ladder_case("far", False)
+    ladder = knn.default_ladder(tree)
+    step = knn.ladder_chunk(ladder)
+    rng = np.random.Generator(np.random.Philox(22))
+    q = (rng.random((4 * step + 7, 3)) + 100.0).astype(np.float32)
+    card, qc = _tree_on(tree, cuda), torch.from_numpy(q).to(cuda)
+    rows = []
+    brute = knn._streaming_brute_pass
+
+    def counted(xyz, n, queries_w, k, box):
+        rows.append(queries_w.shape[0])
+        return brute(xyz, n, queries_w, k, box)
+
+    monkeypatch.setattr(knn, "_streaming_brute_pass", counted)
+    before = _launches("knn.ladder")
+    kernel_rows = profiling.counters().get("knn.ladder.kernel_rows", 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    res = knn.ladder_knn(card, qc, k, with_stats=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    assert _launches("knn.ladder") == before + 1
+    assert (profiling.counters()["knn.ladder.kernel_rows"]
+            == kernel_rows + len(q))
+    assert rows == [step] * 4 + [7]
+
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    d2, slot = brute(card.xyz, card.n, knn.query_cells(card, qc)[0], k, None)
+    torch.cuda.synchronize()
+    whole = torch.cuda.max_memory_allocated(cuda) - base
+    assert peak < whole / 2
+    d, i = knn.finish_indices(card, d2, slot)
+    assert _bit_equal(res.distances, d)
+    assert torch.equal(res.indices, i)
+    assert bool((res.stats.points_visited >= card.n).all())
+
+
+def test_ladder_kernel_wrapper_raises_on_the_card(cuda):
+    tree, q = _ladder_case("uniform", False)
+    card, qc = _tree_on(tree, cuda), q.to(cuda)
+    ladder = knn.default_ladder(tree)
+    with pytest.raises(ValueError, match="queries"):
+        kc.knn_ladder(card, qc.T.contiguous().T, 16, ladder)  # strided
+    with pytest.raises(ValueError, match="queries"):
+        kc.knn_ladder(card, q, 16, ladder)  # on the CPU
+    with pytest.raises(ValueError, match="offsets"):
+        kc.knn_ladder(dataclasses.replace(card, offsets=card.offsets.long()),
+                      qc, 16, ladder)
+    # the route makes strided queries contiguous itself
+    d, i = knn.ladder_knn(card, qc.T.contiguous().T, 16)[:2]
+    rd, ri = knn.ladder_knn(card, qc, 16)[:2]
+    assert _bit_equal(d, rd) and torch.equal(i, ri)

@@ -49,6 +49,9 @@ PARENT = {
 }
 #: spans only a card's calls open: the dense kernel's binning
 CARD_PARENT = {"nbodyhpc.render.dense.bin": "nbodyhpc.render.dense"}
+#: spans only the CPU's calls open: the torch rungs, which a card's ladder
+#: runs as one kernel
+CPU_ONLY = {"nbodyhpc.knn.rung"}
 
 #: the benchmark's span readers: (span, public call)
 READERS = {
@@ -328,7 +331,8 @@ def test_device_ms_on_the_card():
     with torch.profiler.profile(activities=CPU):
         _calls("cuda")
     totals = profiling.span_totals()
-    assert set(totals) == set(PARENT) | set(CARD_PARENT)
+    assert set(totals) == (set(PARENT) - CPU_ONLY) | set(CARD_PARENT)
+    assert profiling.counters()["knn.ladder.launches"] >= 1
     recs = profiling.records()
     for r in recs:
         parent = None if r.parent is None else recs[r.parent].name
