@@ -41,9 +41,8 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 SIGNATURES = {
-    # starts cnts aoff srcf srci dstf dsti ntiles src_stride dst_stride ch
-    # halo stream
-    "splat_align": (_P, _P, _P, _P, _P, _P, _P, _I, _LL, _LL, _I, _I, _P),
+    # starts cnts aoff srcf dstf ntiles src_stride dst_stride ch stream
+    "splat_align": (_P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P),
     # attrs stride nchunks ch F S vol gx gy gz stream
     "splat_deposit": (_P, _LL, _I, _I, _I, _I, _P, _I, _I, _I, _P),
     # gx gy gz (returns the tile count; no launch)

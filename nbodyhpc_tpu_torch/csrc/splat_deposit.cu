@@ -52,8 +52,8 @@
 // splat_common.h). F and the common S = 4 are template parameters; other S
 // up to 16 take the runtime path.
 //
-// Attribute layout: float32 [8][stride] rows px py pz rpx w_norm w_raw is_sub
-// spare (the aligned stream of the align kernel); rows of chunk c are
+// Attribute layout: float32 [7][stride] rows px py pz rpx w_norm w_raw is_sub
+// (the aligned stream of the align kernel); rows of chunk c are
 // [c * ch, (c + 1) * ch).
 #include <cuda_runtime.h>
 

@@ -6,13 +6,13 @@ nbodyhpc/kdtree/__init__.py:11-56 and pybind.cpp:196-216):
 ``.query(points, k=1, workers=1)`` returning (distances float32 ascending,
 indices uint32), plus the ``n``/``size``/``periodic``/``boxsize`` properties.
 
-Internally a sorted cell-list engine (:mod:`..ops.knn`): on a CUDA device,
-batches of 8192 queries or more go through the hand-written candidate
-kernels (:mod:`..ops.knn_device`, :mod:`..ops.knn_cuda`) and the exact
-ladder finishes what they cannot certify; smaller batches and CPU trees take
-the ladder. A tree built from numpy lives on the card unless ``device``
-names another. ``engine="kernel"`` forces the kernel route, which on the CPU
-runs the kernels' plain versions.
+Internally a sorted cell-list engine, routed by :mod:`..ops.knn_device`: on
+a CUDA device, batches of 8192 queries or more go through the hand-written
+candidate kernels (:mod:`..ops.knn_cuda`) and the exact ladder
+(:mod:`..ops.knn`) finishes what they cannot certify; smaller batches and
+CPU trees take the ladder. A tree built from numpy lives on the card unless
+``device`` names another. ``engine="kernel"`` forces the kernel route, which
+on the CPU runs the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -25,13 +25,10 @@ import torch.distributed as dist
 
 from .. import default_device
 from ..core.cells import build_cell_list
-from ..ops import knn as _knn
 from ..ops.knn import QueryStatistics
+from ..ops.knn_device import ENGINES, cell_knn_query
 
 __all__ = ["KDTree", "QueryStatistics", "ENGINES"]
-
-ENGINES = ("auto", "ladder", "kernel")
-_USE_KERNEL = {"auto": "auto", "ladder": "never", "kernel": "force"}
 
 
 def _group_size() -> int:
@@ -131,7 +128,7 @@ class KDTree:
 
             distances, indices = knn_query_sharded(self._tree, points, k)
         else:
-            res = _knn.cell_knn_query(self._tree, points, k)
+            res = cell_knn_query(self._tree, points, k)
             distances = res.distances.cpu().numpy()
             indices = res.indices.cpu().numpy()
         indices = indices.astype(np.uint32)
@@ -150,12 +147,7 @@ class KDTree:
         ladder. Returns (distances (Q, k) float32 ascending, indices (Q, k)
         int32 -- not uint32, which torch supports for few operations).
         """
-        if k <= 0:
-            raise ValueError("k must be positive")
-        if engine not in ENGINES:
-            raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
-        res = _knn.cell_knn_query(self._tree, queries, k,
-                                  use_kernel=_USE_KERNEL[engine])
+        res = cell_knn_query(self._tree, queries, k, engine=engine)
         return res.distances, res.indices
 
     def query_with_statistics(self, points, k: int = 1,
@@ -165,11 +157,9 @@ class KDTree:
         candidate points visited, cells pruned by the convergence bound;
         reference KDTreeQueryStatistics, kdtree.hpp:124-131). Queries the
         kernels answer report their piece's plan row."""
-        if engine not in ENGINES:
-            raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
         points = np.asarray(points, dtype=np.float32).reshape(-1, 3)
-        res = _knn.cell_knn_query(self._tree, points, k, with_stats=True,
-                                  use_kernel=_USE_KERNEL[engine])
+        res = cell_knn_query(self._tree, points, k, with_stats=True,
+                             engine=engine)
         stats = QueryStatistics(*(s.cpu().numpy() for s in res.stats))
         return (res.distances.cpu().numpy(),
                 res.indices.cpu().numpy().astype(np.uint32), stats)

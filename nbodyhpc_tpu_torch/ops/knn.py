@@ -18,11 +18,8 @@ expression as XLA compiles it for the CPU: :func:`.metrics.sq_dist` after
 the min-image wrap in the passes, ``(dx*dx + dy*dy) + dz*dz`` in
 :func:`brute_force_knn`.
 
-The kernel route (``use_kernel``) answers large batches on a CUDA device
-through :mod:`.knn_device` and finishes its unconverged queries here. On a
-CUDA device, and for ``k <= 128``, the ladder's rungs are one kernel
-(:func:`.knn_cuda.knn_ladder`); the torch rungs (:func:`ladder_rungs`) are
-its plain twin, and run on the CPU and for larger ``k``.
+This module is plain torch and the twin of every k-NN kernel; the routes
+between it and the kernels are :mod:`.knn_device`'s.
 """
 from __future__ import annotations
 
@@ -34,10 +31,6 @@ import torch
 from ..core.cells import CellList
 from ..utils import profiling
 from .metrics import fma_f32, sq_dist, sqrt_f32, wrap_min_image
-
-#: the smallest batch the "auto" route sends to the candidate kernels
-KERNEL_MIN_QUERIES = 8192
-
 
 class QueryStatistics(NamedTuple):
     """Per-query work counters (reference KDTreeQueryStatistics,
@@ -378,15 +371,6 @@ def ladder_chunk(ladder) -> int:
     return min(65536, max(2048, (1 << 25) // bmax))
 
 
-def ladder_on_kernel(tree: CellList, k: int) -> bool:
-    """Whether the ladder's rungs run as one CUDA kernel
-    (:func:`.knn_cuda.knn_ladder`): a tree on a CUDA device and ``k <=
-    TOPK_MAX``. Otherwise :func:`ladder_rungs` runs them in torch."""
-    from .knn_cuda import TOPK_MAX
-
-    return tree.device.type == "cuda" and k <= TOPK_MAX
-
-
 def ladder_rungs(tree: CellList, queries, k: int, ladder):
     """The ladder's rungs in torch, the plain twin of the ladder kernel:
     (d2 [Q, k], slot [Q, k] int64, conv [Q], (cells_scanned,
@@ -409,122 +393,9 @@ def ladder_rungs(tree: CellList, queries, k: int, ladder):
     return state
 
 
-def _ladder_query(tree: CellList, queries, k: int, ladder, on_kernel: bool):
-    """The ladder on one batch, finished by the streaming brute-force pass
-    where it cannot certify, ``ladder_chunk`` rows at a time, so its
-    candidate blocks stay bounded: returns (d2, slot, stats)."""
-    if on_kernel:
-        from .knn_cuda import knn_ladder
-
-        d2, slot, conv, stats = knn_ladder(tree, queries.contiguous(), k,
-                                           ladder)
-    else:
-        d2, slot, conv, stats = ladder_rungs(tree, queries, k, ladder)
-    if bool((~conv).any()):
-        bad = torch.nonzero(~conv).squeeze(1)
-        box = None
-        if tree.periodic:
-            L = np.asarray(tree.dims, np.float32) * np.asarray(tree.cell_size,
-                                                               np.float32)
-            box = [float(v) for v in L]
-        step = ladder_chunk(ladder)
-        parts = [_streaming_brute_pass(tree.xyz, tree.n,
-                                       query_cells(tree, queries[rows])[0], k,
-                                       box)
-                 for rows in bad.split(step)]
-        d2 = d2.index_copy(0, bad, torch.cat([p[0] for p in parts]))
-        slot = slot.index_copy(0, bad, torch.cat([p[1] for p in parts])
-                               .to(slot.dtype))
-        pv = stats[1].index_add(0, bad, torch.full_like(bad, tree.n,
-                                                        dtype=torch.int32))
-        stats = (stats[0], pv, stats[2])  # brute-forced queries pruned nothing
-    return d2, slot, stats
-
-
 def finish_indices(tree: CellList, d2, slot):
     """(distances, original indices): sqrt of ``d2``, and ``index[slot]``
     with ``n`` wherever the distance is not finite."""
     gidx = tree.index[slot.clamp_min(0).long()]
     gidx = torch.where(torch.isfinite(d2), gidx, tree.n)
     return sqrt_f32(d2), gidx
-
-
-def ladder_knn(tree: CellList, queries, k: int,
-               with_stats: bool = False) -> KnnResult:
-    """Exact k-NN through the ladder alone, chunked so the biggest pass's
-    candidate block stays bounded (the ladder kernel builds none and takes
-    the batch at once; its brute pass is chunked). ``queries`` (Q, 3) on
-    the tree's device."""
-    with profiling.span("nbodyhpc.knn.ladder"):
-        return _ladder_knn(tree, queries, k, with_stats)
-
-
-def _ladder_knn(tree: CellList, queries, k: int, with_stats: bool):
-    ladder = default_ladder(tree)
-    on_kernel = ladder_on_kernel(tree, k)
-    # the kernel builds no candidate block, so it takes the batch at once
-    csize = max(queries.shape[0], 1) if on_kernel else ladder_chunk(ladder)
-    dists, idxs, cs, pv, cp = [], [], [], [], []
-    for s in range(0, queries.shape[0], csize):
-        d2, slot, stats = _ladder_query(tree, queries[s:s + csize], k,
-                                        ladder, on_kernel)
-        d, gi = finish_indices(tree, d2, slot)
-        dists.append(d)
-        idxs.append(gi)
-        cs.append(stats[0])
-        pv.append(stats[1])
-        cp.append(stats[2])
-    if not dists:
-        dev = queries.device
-        empty_i = torch.empty((0,), dtype=torch.int32, device=dev)
-        dists = [torch.empty((0, k), device=dev)]
-        idxs = [torch.empty((0, k), dtype=torch.int32, device=dev)]
-        cs, pv, cp = [empty_i], [empty_i], [empty_i]
-    stats = (QueryStatistics(torch.cat(cs), torch.cat(pv), torch.cat(cp))
-             if with_stats else None)
-    return KnnResult(torch.cat(dists), torch.cat(idxs), stats)
-
-
-def kernel_route_ok(tree: CellList) -> bool:
-    """The candidate kernels scan wrapped 3x3 neighbour columns; a periodic
-    tree with fewer than 3 cells in x or y would alias them, so such
-    (tiny) trees stay on the exact ladder."""
-    return not (tree.periodic
-                and (int(tree.dims[0]) < 3 or int(tree.dims[1]) < 3))
-
-
-def cell_knn_query(tree: CellList, queries, k: int,
-                   with_stats: bool = False,
-                   use_kernel: str = "auto") -> KnnResult:
-    """Exact batched k-NN against a :class:`CellList`.
-
-    ``queries`` (Q, 3), numpy or tensor; results are tensors on the tree's
-    device. ``use_kernel``: "auto" sends batches of at least
-    :data:`KERNEL_MIN_QUERIES` on a CUDA tree through the candidate kernels
-    (:func:`.knn_device.query_blocks_device`), "force" always does (on the
-    CPU through the kernels' plain versions), "never" keeps the ladder.
-    Either way unconverged queries finish on the ladder, so every answer is
-    exact.
-    """
-    if k <= 0:
-        raise ValueError("k must be positive")  # reference: pybind.cpp:92-94
-    if use_kernel not in ("auto", "force", "never"):
-        raise ValueError(f"use_kernel must be auto, force or never, "
-                         f"got {use_kernel!r}")
-    with profiling.span("nbodyhpc.knn.query", tree.device):
-        return _cell_knn_query(tree, queries, k, with_stats, use_kernel)
-
-
-def _cell_knn_query(tree: CellList, queries, k: int, with_stats: bool,
-                    use_kernel: str) -> KnnResult:
-    queries = as_queries(queries, tree.device)
-    profiling.count("knn.queries", queries.shape[0])
-    use = kernel_route_ok(tree) and (
-        use_kernel == "force"
-        or (use_kernel == "auto" and tree.device.type == "cuda"
-            and queries.shape[0] >= KERNEL_MIN_QUERIES))
-    if use:
-        from .knn_device import query_blocks_device
-
-        return query_blocks_device(tree, queries, k, with_stats=with_stats)
-    return ladder_knn(tree, queries, k, with_stats)

@@ -437,6 +437,13 @@ def ladder_args(ladder, npad: int):
     return (len(ladder), *flat, *(0,) * (2 * (LADDER_RUNGS - len(ladder))))
 
 
+def ladder_on_kernel(tree, k: int) -> bool:
+    """Whether the ladder's rungs run as :func:`knn_ladder`: a tree on a
+    CUDA device and ``k <= TOPK_MAX``. Otherwise
+    :func:`.knn.ladder_rungs` runs them in torch."""
+    return tree.device.type == "cuda" and k <= TOPK_MAX
+
+
 def knn_ladder(tree, queries, k: int, ladder):
     """The ladder's rungs for every query row: (d2 [Q, k] float32 ascending,
     slot [Q, k], conv [Q] bool, (cells_scanned, points_visited,
@@ -446,10 +453,10 @@ def knn_ladder(tree, queries, k: int, ladder):
     (Q, 3) on the tree's device, unwrapped; ``k <= TOPK_MAX``.
 
     Kernel ``csrc/knn_ladder.cu``, for a tree on a CUDA device only (no
-    TPU counterpart: the JAX ladder is plain XLA; :func:`.knn._ladder_query`
-    runs the plain twin :func:`.knn.ladder_rungs` elsewhere). Bound by
-    latency at the few rows the kernel route leaves: one warp per row walks
-    its cube's cells and scores 32 consecutive candidates at a time. Counters
+    TPU counterpart: the JAX ladder is plain XLA; the plain twin
+    :func:`.knn.ladder_rungs` runs elsewhere). Bound by latency at the few
+    rows the kernel route leaves: one warp per row walks its cube's cells
+    and scores 32 consecutive candidates at a time. Counters
     ``knn.ladder.launches`` and ``knn.ladder.kernel_rows`` (rows answered
     by the kernel)."""
     _require(1 <= k <= TOPK_MAX, f"knn_ladder: k must be in [1, {TOPK_MAX}]")

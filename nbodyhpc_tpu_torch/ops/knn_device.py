@@ -1,7 +1,18 @@
-"""Per-tree kernel plan and the batch pipeline around the candidate kernels.
+"""The k-NN engine's routes: the candidate kernels with their per-tree plan,
+and the exact ladder.
 
-PyTorch port of :mod:`nbodyhpc_tpu.ops.knn_device`. The tree precomputes,
-once, the candidate runs of every static *piece*:
+:func:`cell_knn_query` is the engine's entry point and decides the route
+once: large batches on a CUDA tree (or any batch, with ``engine="kernel"``)
+go through the candidate kernels (:func:`query_blocks_device`), the rest
+through the ladder (:func:`ladder_knn`), which also finishes the queries
+the kernels cannot certify. The ladder's rungs run as one kernel
+(:func:`.knn_cuda.knn_ladder`) where :func:`.knn_cuda.ladder_on_kernel`
+says so, else as their torch twin (:func:`.knn.ladder_rungs`); a streaming
+brute-force pass (:mod:`.knn`) finishes what the rungs leave.
+
+The candidate route is the PyTorch port of
+:mod:`nbodyhpc_tpu.ops.knn_device`. The tree precomputes, once, the
+candidate runs of every static *piece*:
 
 - **FULLZ** (preferred): a piece is one cell column (x, y) over the full z
   extent. Its queries' 27-cell neighbourhoods union to the 3x3 neighbour
@@ -19,7 +30,7 @@ dynamic pieces of at most :data:`.knn_cuda.QB` queries, runs over every
 piece B3 (k <= 128), B4's selection sink (k <= 256) or B4's distance block
 plus a stable-sort selection (larger k), and applies the r = 1 cube
 convergence bound. Queries the bound cannot certify finish on
-the exact ladder (:mod:`.knn`).
+the exact ladder (:func:`ladder_knn`).
 
 Kept from the JAX plan: which tree ranges each piece scans, which queries
 are certified, and which go to the ladder. Left out, being TPU artefacts:
@@ -30,7 +41,7 @@ padding, in-flight pacing, the stage tracer, and the sort-plus-gather used
 in place of a scatter. Because the kernels stream runs of any length, no
 piece is flagged for overflowing a slot budget: the kernel route is refused
 only where the JAX plan refuses it outright (periodic trees with fewer than
-3 cells in x or y, see :func:`.knn.kernel_route_ok`).
+3 cells in x or y, see :func:`kernel_route_ok`).
 """
 from __future__ import annotations
 
@@ -45,13 +56,20 @@ from . import knn_cuda
 from .knn import (
     KnnResult,
     QueryStatistics,
+    _streaming_brute_pass,
     as_queries,
     cube_bound,
+    default_ladder,
     finish_indices,
-    kernel_route_ok,
-    ladder_knn,
+    ladder_chunk,
+    ladder_rungs,
     query_cells,
 )
+
+#: the engine choices of :func:`cell_knn_query`
+ENGINES = ("auto", "ladder", "kernel")
+#: the smallest batch the "auto" route sends to the candidate kernels
+KERNEL_MIN_QUERIES = 8192
 
 #: the JAX plan's ZSEG candidate budget (NRUNS x RCAP), which sizes the
 #: static z-segments
@@ -234,14 +252,23 @@ def _fullz_overflow_fraction(lens, maxsl: int) -> float:
     return float((slots > FULLZ_NR).float().mean())
 
 
+def kernel_route_ok(tree: CellList) -> bool:
+    """The candidate kernels scan wrapped 3x3 neighbour columns; a periodic
+    tree with fewer than 3 cells in x or y would alias them, so such
+    (tiny) trees stay on the exact ladder."""
+    return not (tree.periodic
+                and (int(tree.dims[0]) < 3 or int(tree.dims[1]) < 3))
+
+
 def tree_plan(tree: CellList) -> KernelPlan | None:
     """The tree's kernel plan (cached on the tree), or None where the kernel
-    route is refused. FULLZ unless more than 1% of columns overflow the JAX
-    plan's largest FULLZ budget, then ZSEG. Two scalar syncs per tree."""
-    if not kernel_route_ok(tree):
-        return None
+    route is refused (:func:`kernel_route_ok`). FULLZ unless more than 1% of
+    columns overflow the JAX plan's largest FULLZ budget, then ZSEG. Two
+    scalar syncs per tree."""
     if tree.kernel_plan is not None:
         return tree.kernel_plan
+    if not kernel_route_ok(tree):
+        return None
     profiling.count("knn.plan_builds")
     with profiling.span("nbodyhpc.knn.plan"):
         tree.kernel_plan = _build_plan(tree)
@@ -445,3 +472,112 @@ def query_blocks_device(tree: CellList, queries, k: int,
 
 
 query_blocks_device.ladder_queries = 0
+
+
+# ---------------------------------------------------------------------------
+# The exact ladder
+# ---------------------------------------------------------------------------
+
+
+def _ladder_query(tree: CellList, queries, k: int, ladder, on_kernel: bool):
+    """The ladder on one batch, finished by the streaming brute-force pass
+    where it cannot certify, ``ladder_chunk`` rows at a time, so its
+    candidate blocks stay bounded: returns (d2, slot, stats)."""
+    if on_kernel:
+        d2, slot, conv, stats = knn_cuda.knn_ladder(tree, queries.contiguous(),
+                                                    k, ladder)
+    else:
+        d2, slot, conv, stats = ladder_rungs(tree, queries, k, ladder)
+    if bool((~conv).any()):
+        bad = torch.nonzero(~conv).squeeze(1)
+        box = None
+        if tree.periodic:
+            L = np.asarray(tree.dims, np.float32) * np.asarray(tree.cell_size,
+                                                               np.float32)
+            box = [float(v) for v in L]
+        step = ladder_chunk(ladder)
+        parts = [_streaming_brute_pass(tree.xyz, tree.n,
+                                       query_cells(tree, queries[rows])[0], k,
+                                       box)
+                 for rows in bad.split(step)]
+        d2 = d2.index_copy(0, bad, torch.cat([p[0] for p in parts]))
+        slot = slot.index_copy(0, bad, torch.cat([p[1] for p in parts])
+                               .to(slot.dtype))
+        pv = stats[1].index_add(0, bad, torch.full_like(bad, tree.n,
+                                                        dtype=torch.int32))
+        stats = (stats[0], pv, stats[2])  # brute-forced queries pruned nothing
+    return d2, slot, stats
+
+
+def ladder_knn(tree: CellList, queries, k: int,
+               with_stats: bool = False) -> KnnResult:
+    """Exact k-NN through the ladder alone, chunked so the biggest pass's
+    candidate block stays bounded (the ladder kernel builds none and takes
+    the batch at once; its brute pass is chunked). ``queries`` (Q, 3) on
+    the tree's device."""
+    with profiling.span("nbodyhpc.knn.ladder"):
+        return _ladder_knn(tree, queries, k, with_stats)
+
+
+def _ladder_knn(tree: CellList, queries, k: int, with_stats: bool):
+    ladder = default_ladder(tree)
+    on_kernel = knn_cuda.ladder_on_kernel(tree, k)
+    # the kernel builds no candidate block, so it takes the batch at once
+    csize = max(queries.shape[0], 1) if on_kernel else ladder_chunk(ladder)
+    dists, idxs, cs, pv, cp = [], [], [], [], []
+    for s in range(0, queries.shape[0], csize):
+        d2, slot, stats = _ladder_query(tree, queries[s:s + csize], k,
+                                        ladder, on_kernel)
+        d, gi = finish_indices(tree, d2, slot)
+        dists.append(d)
+        idxs.append(gi)
+        cs.append(stats[0])
+        pv.append(stats[1])
+        cp.append(stats[2])
+    if not dists:
+        dev = queries.device
+        empty_i = torch.empty((0,), dtype=torch.int32, device=dev)
+        dists = [torch.empty((0, k), device=dev)]
+        idxs = [torch.empty((0, k), dtype=torch.int32, device=dev)]
+        cs, pv, cp = [empty_i], [empty_i], [empty_i]
+    stats = (QueryStatistics(torch.cat(cs), torch.cat(pv), torch.cat(cp))
+             if with_stats else None)
+    return KnnResult(torch.cat(dists), torch.cat(idxs), stats)
+
+
+# ---------------------------------------------------------------------------
+# The route
+# ---------------------------------------------------------------------------
+
+
+def cell_knn_query(tree: CellList, queries, k: int,
+                   with_stats: bool = False,
+                   engine: str = "auto") -> KnnResult:
+    """Exact batched k-NN against a :class:`CellList`.
+
+    ``queries`` (Q, 3), numpy or tensor; results are tensors on the tree's
+    device. ``engine``: "auto" sends batches of at least
+    :data:`KERNEL_MIN_QUERIES` on a CUDA tree through the candidate kernels
+    (:func:`query_blocks_device`), "kernel" always does (on the CPU through
+    the kernels' plain versions), "ladder" never does; a tree
+    :func:`tree_plan` refuses takes the ladder. Either way unconverged
+    queries finish on the ladder, so every answer is exact.
+    """
+    if k <= 0:
+        raise ValueError("k must be positive")  # reference: pybind.cpp:92-94
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, got {engine!r}")
+    with profiling.span("nbodyhpc.knn.query", tree.device):
+        return _cell_knn_query(tree, queries, k, with_stats, engine)
+
+
+def _cell_knn_query(tree: CellList, queries, k: int, with_stats: bool,
+                    engine: str) -> KnnResult:
+    queries = as_queries(queries, tree.device)
+    profiling.count("knn.queries", queries.shape[0])
+    kernel = engine == "kernel" or (
+        engine == "auto" and tree.device.type == "cuda"
+        and queries.shape[0] >= KERNEL_MIN_QUERIES)
+    if kernel and tree_plan(tree) is not None:
+        return query_blocks_device(tree, queries, k, with_stats=with_stats)
+    return ladder_knn(tree, queries, k, with_stats)

@@ -9,15 +9,13 @@ bucket the pipeline is:
    ``ceil(p - (F/2 + 0.5))``. One stable ``torch.sort`` of the key plus one
    gather groups the whole set by class, then by tile. The key is computed
    once and carried; nothing downstream recomputes it from positions.
-2. **Channels** (:func:`_prep_body`): the bucket's slice becomes a structure
-   of arrays — float32 ``[8, n]`` (px py pz rpx w_norm w_raw is_sub spare)
-   and int32 ``[4, n]`` (tile bx_ext bz_ext by_local) — plus per-tile
-   ``starts``/``cnts`` and CH-aligned offsets ``aoff``. Today's deposit
-   reads only the float channels; the int channels (tile-local window
-   bases) are what a shared-memory tile accumulator will address by.
+2. **Channels** (:func:`_prep_body`): the bucket's slice becomes the
+   deposit's structure of arrays, float32 ``[7, n]`` (px py pz rpx w_norm
+   w_raw is_sub), plus per-tile ``starts``/``cnts`` and CH-aligned offsets
+   ``aoff``.
 3. **Align** (:func:`align`, kernel ``csrc/splat_align.cu``): the ragged
    per-tile runs are copied to CH-aligned offsets and each tile's last chunk
-   is padded with inert rows, so every CH-row chunk holds one tile.
+   is padded with zero rows, so every CH-row chunk holds one tile.
 4. **Deposit** (:func:`deposit`, kernel ``csrc/splat_deposit.cu``): one CUDA
    block per real chunk walks each particle's covered columns (not its whole
    F^3 window), decides interior and exterior voxels without the subcell
@@ -60,15 +58,14 @@ from .splat import (
 from .splat_dense import splat_volume_dense
 
 TX, TZ = 128, 64  # tile extent in x and z (y extent: the bucket's YTILE)
-NF = 8            # float channels: px py pz rpx w_norm w_raw is_sub spare
-NI = 4            # int channels: tile bx_ext bz_ext by_local
+NF = 7            # stream channels: px py pz rpx w_norm w_raw is_sub
 
 
 class _Geom(NamedTuple):
     """Radius-bucket geometry: footprint window F per axis, y voxels per
-    tile, x/z halo width of the tile-local bases, the pixel-radius interval
-    (RMIN, RMAX] the bucket deposits, and CH, the rows of one aligned chunk
-    (one deposit block)."""
+    tile, HALO (how far below the grid in x and z a window base may start
+    and still be keyed), the pixel-radius interval (RMIN, RMAX] the bucket
+    deposits, and CH, the rows of one aligned chunk (one deposit block)."""
 
     F: int
     YTILE: int
@@ -291,42 +288,21 @@ def _prep_body(pos_px, w, rpx, key, grid, geom=G8):
 
     ``key``: the rows' tile keys in the bucket's own numbering, ascending;
     keys outside [0, ntiles) mark rows no tile covers (zero weight, unit
-    radius). Returns ``srcf`` float32 [8, n], ``srci`` int32 [4, n] and the
-    per-tile ``starts``, ``cnts`` and CH-aligned ``aoff``, int32 [ntiles].
+    radius). Returns ``srcf`` float32 [7, n] and the per-tile ``starts``,
+    ``cnts`` and CH-aligned ``aoff``, int32 [ntiles].
     """
-    F, HALO, YTILE = geom.F, geom.HALO, geom.YTILE
-    gxp, gyp, gzp = _grid_pad(grid, geom)
-    nty, ntz = gyp // YTILE, gzp // TZ
-    ntiles = (gxp // TX) * nty * ntz
+    ntiles = _ntiles(grid, geom)
     dev = pos_px.device
-    px, py, pz = pos_px[:, 0], pos_px[:, 1], pos_px[:, 2]
 
     invalid = (key >= ntiles) | (key < 0)
-    tile = key.clamp(0, ntiles - 1)
     ww = torch.where(invalid, 0.0, w)
     rr = torch.where(invalid, 1.0, rpx)
-
-    tz = torch.remainder(tile, ntz)
-    ty = torch.remainder(_floordiv(tile, ntz), nty)
-    tx = _floordiv(tile, ntz * nty)
-
-    C = F / 2 + 0.5
-    bx = torch.ceil(px - C).to(torch.int32)
-    by = torch.ceil(py - C).to(torch.int32)
-    bz = torch.ceil(pz - C).to(torch.int32)
 
     is_sub = rr < 0.5
     vol = FOUR_THIRDS_PI * rr * rr * rr
     w_norm = torch.where(is_sub, 0.0, ww / torch.where(is_sub, 1.0, vol))
     w_raw = torch.where(is_sub, ww, 0.0)
-
-    bx_ext = torch.where(invalid, HALO, bx - tx * TX + HALO)
-    bz_ext = torch.where(invalid, HALO, bz - tz * TZ + HALO)
-    by_loc = torch.where(invalid, 0, by - ty * YTILE)
-
-    srcf = torch.stack([px, py, pz, rr, w_norm, w_raw, is_sub.float(),
-                        torch.zeros_like(px)])
-    srci = torch.stack([tile, bx_ext, bz_ext, by_loc]).to(torch.int32)
+    srcf = torch.stack([*pos_px.unbind(1), rr, w_norm, w_raw, is_sub.float()])
 
     starts = torch.searchsorted(
         key, torch.arange(ntiles + 1, dtype=torch.int32, device=dev),
@@ -335,7 +311,7 @@ def _prep_body(pos_px, w, rpx, key, grid, geom=G8):
     cnts = torch.diff(starts)
     aligned = (cnts + geom.CH - 1) // geom.CH * geom.CH
     aoff = torch.cumsum(aligned, 0, dtype=torch.int32) - aligned
-    return srcf, srci, starts[:-1].contiguous(), cnts, aoff
+    return srcf, starts[:-1].contiguous(), cnts, aoff
 
 
 # ---------------------------------------------------------------------------
@@ -343,13 +319,12 @@ def _prep_body(pos_px, w, rpx, key, grid, geom=G8):
 # ---------------------------------------------------------------------------
 
 
-def align_reference(starts, cnts, aoff, srcf, srci, ch: int, halo: int,
-                    nrows: int):
+def align_reference(starts, cnts, aoff, srcf, ch: int, nrows: int):
     """Plain version of the align kernel: tile t's rows
-    ``[starts[t], starts[t] + cnts[t])`` of ``srcf``/``srci`` go to
+    ``[starts[t], starts[t] + cnts[t])`` of ``srcf`` go to
     ``[aoff[t], aoff[t] + cnts[t])``, and the rows up to the next multiple
-    of ``ch`` become inert pads (float 0; int tile=t, halo, halo, 0).
-    ``nrows`` is the total aligned row count."""
+    of ``ch`` become zero rows, which deposit nothing. ``nrows`` is the
+    total aligned row count."""
     dev = srcf.device
     ntiles = starts.shape[0]
     aligned = (cnts.long() + ch - 1) // ch * ch
@@ -359,61 +334,51 @@ def align_reference(starts, cnts, aoff, srcf, srci, ch: int, halo: int,
     local = torch.arange(nrows, device=dev) - aoff.long()[tile]
     real = local < cnts.long()[tile]
     src = torch.where(real, starts.long()[tile] + local, 0)
-    dstf = torch.where(real, srcf[:, src], 0.0)
-    pad = torch.stack([tile, torch.full_like(tile, halo),
-                       torch.full_like(tile, halo), torch.zeros_like(tile)])
-    dsti = torch.where(real, srci[:, src].long(), pad).to(torch.int32)
-    return dstf, dsti
+    return torch.where(real, srcf[:, src], 0.0)
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def align(starts, cnts, aoff, srcf, srci, ch: int, halo: int, nrows: int):
+def align(starts, cnts, aoff, srcf, ch: int, nrows: int):
     """Aligned copy of the tile-sorted stream (see :func:`align_reference`).
 
     Kernel ``csrc/splat_align.cu`` for CUDA tensors; replaces
     ``nbodyhpc_tpu/ops/splat_pallas.py::_align_kernel``. Bound by memory
-    bandwidth (12 x 4 bytes in and out per row); one block per tile, rows
-    coalesced across threads. Returns (dstf float32 [8, nrows], dsti int32
-    [4, nrows]).
+    bandwidth (7 x 4 bytes in and out per row); one block per tile, rows
+    coalesced across threads. Returns float32 [7, nrows].
     """
     dev = srcf.device
     _require(
-        all(t.device == dev for t in (starts, cnts, aoff, srci)),
+        all(t.device == dev for t in (starts, cnts, aoff)),
         "align: all tensors must be on one device",
     )
     if dev.type == "cpu":
-        return align_reference(starts, cnts, aoff, srcf, srci, ch, halo,
-                               nrows)
+        return align_reference(starts, cnts, aoff, srcf, ch, nrows)
     _require(dev.type == "cuda", f"align: unsupported device {dev}")
     ntiles = starts.shape[0]
     for name, t, dt in (("starts", starts, torch.int32),
                         ("cnts", cnts, torch.int32),
                         ("aoff", aoff, torch.int32),
-                        ("srcf", srcf, torch.float32),
-                        ("srci", srci, torch.int32)):
+                        ("srcf", srcf, torch.float32)):
         _require(t.dtype == dt, f"align: {name} must be {dt}, got {t.dtype}")
         _require(t.is_contiguous(), f"align: {name} must be contiguous")
     _require(starts.shape == cnts.shape == aoff.shape == (ntiles,),
              "align: starts/cnts/aoff must be [ntiles]")
-    _require(srcf.dim() == 2 and srcf.shape[0] == NF
-             and srci.shape == (NI, srcf.shape[1]),
-             "align: srcf must be [8, n] and srci [4, n]")
+    _require(srcf.dim() == 2 and srcf.shape[0] == NF,
+             f"align: srcf must be [{NF}, n]")
     dstf = torch.empty((NF, nrows), dtype=torch.float32, device=dev)
-    dsti = torch.empty((NI, nrows), dtype=torch.int32, device=dev)
     if nrows == 0 or ntiles == 0:
-        return dstf, dsti
+        return dstf
     lib = _build.load().lib
     err = lib.splat_align(
         starts.data_ptr(), cnts.data_ptr(), aoff.data_ptr(), srcf.data_ptr(),
-        srci.data_ptr(), dstf.data_ptr(), dsti.data_ptr(), ntiles,
-        srcf.shape[1], nrows, ch, halo, _stream(srcf),
+        dstf.data_ptr(), ntiles, srcf.shape[1], nrows, ch, _stream(srcf),
     )
     profiling.count("splat.align.launches")
     _build.check(err, "splat_align launch")
-    return dstf, dsti
+    return dstf
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +397,7 @@ def deposit_reference(attrs, nchunks: int, vol, geom: _Geom,
     """Plain version of the deposit kernel, built on the oracle's
     :func:`.splat.footprint_terms`: every particle of the first
     ``nchunks * geom.CH`` rows of the aligned stream ``attrs`` (float32
-    [8, rows]) deposits its F^3 window at ``ceil(p - (F/2 + 0.5))`` into
+    [7, rows]) deposits its F^3 window at ``ceil(p - (F/2 + 0.5))`` into
     ``vol`` (gx, gy, gz), in place; voxels outside the grid are dropped.
     Returns ``vol``."""
     F = geom.F
@@ -485,7 +450,7 @@ def deposit(attrs, nchunks: int, vol, geom: _Geom, subsample: int = 4):
     _require(attrs.dtype == torch.float32 and attrs.dim() == 2
              and attrs.shape[0] == NF
              and attrs.shape[1] >= nchunks * geom.CH,
-             "deposit: attrs must be float32 [8, >= nchunks * CH]")
+             f"deposit: attrs must be float32 [{NF}, >= nchunks * CH]")
     if dev.type == "cpu":
         return deposit_reference(attrs, nchunks, vol, geom, subsample)
     _require(dev.type == "cuda", f"deposit: unsupported device {dev}")
@@ -512,21 +477,19 @@ def deposit(attrs, nchunks: int, vol, geom: _Geom, subsample: int = 4):
 
 
 def bucket_stream(part: FusedPartition, bi: int):
-    """Bucket ``bi``'s aligned stream: returns (attrs float32 [8, rows],
-    ints int32 [4, rows], nchunks), or None when the bucket is empty. One
-    device sync (the aligned row count)."""
+    """Bucket ``bi``'s aligned stream: returns (attrs float32 [7, rows],
+    nchunks), or None when the bucket is empty. One device sync (the
+    aligned row count)."""
     geom = BUCKETS[bi]
     r0, r1 = part.wtabs[bi][0], part.wtabs[bi][-1]
     if r1 == r0:
         return None
-    srcf, srci, starts, cnts, aoff = _prep_body(
+    srcf, starts, cnts, aoff = _prep_body(
         part.pos_px[r0:r1], part.w[r0:r1], part.rpx[r0:r1],
         part.key[r0:r1] - part.kbases[bi], part.grid, geom,
     )
     nchunks = int(((cnts + geom.CH - 1) // geom.CH).sum())
-    alf, ali = align(starts, cnts, aoff, srcf, srci, geom.CH, geom.HALO,
-                     nchunks * geom.CH)
-    return alf, ali, nchunks
+    return align(starts, cnts, aoff, srcf, geom.CH, nchunks * geom.CH), nchunks
 
 
 def splat_volume(positions, weights, radii, pixels_per_unit: float, grid,
@@ -556,8 +519,8 @@ def splat_volume(positions, weights, radii, pixels_per_unit: float, grid,
         for bi, geom in enumerate(BUCKETS):
             stream = bucket_stream(part, bi)
             if stream is not None:
-                deposit(stream[0], stream[2], vol, geom, subsample)
-                profiling.count("render.chunks", stream[2])
+                deposit(stream[0], stream[1], vol, geom, subsample)
+                profiling.count("render.chunks", stream[1])
     profiling.count("render.dense_rows", part.n_huge)
     profiling.count("render.dense_voxels", part.dense_voxels)
     if part.n_huge:

@@ -25,9 +25,9 @@ import torch.distributed as dist
 
 from ..core.cells import CellList
 from ..core.points import round_up
-from ..ops import knn as _knn
 from ..ops import splat_cuda
 from ..ops.ghosts import augment_points_periodic
+from ..ops.knn_device import cell_knn_query
 from ..ops.splat import as_f32
 from .mesh import SlabMesh, _host_staged, make_slab_mesh
 
@@ -272,10 +272,10 @@ def knn_query_sharded(tree: CellList, queries, k: int,
     Every rank passes the same cell list and the same queries; rank r
     answers the r-th of ``nd`` slices of ``round_up(ceil(Q / nd), 8)``
     queries (the last padded with zero rows) through
-    :func:`..ops.knn.cell_knn_query`, so on the card through the candidate
-    kernels where "auto" takes them. The answers are gathered, and every
-    rank returns (distances [Q, k] float32, indices [Q, k] int32) as numpy.
-    This is the reference's per-query thread fan-out
+    :func:`..ops.knn_device.cell_knn_query`, so on the card through the
+    candidate kernels where "auto" takes them. The answers are gathered,
+    and every rank returns (distances [Q, k] float32, indices [Q, k]
+    int32) as numpy. This is the reference's per-query thread fan-out
     (kdtree/src/cpp/pybind.cpp:164-172) lifted from threads to ranks.
     """
     mesh = _tree_mesh(tree, mesh)
@@ -287,7 +287,7 @@ def knn_query_sharded(tree: CellList, queries, k: int,
     qpad = np.zeros((nd * qloc, 3), np.float32)
     qpad[:Q] = queries
 
-    res = _knn.cell_knn_query(tree, qpad[s * qloc:(s + 1) * qloc], k)
+    res = cell_knn_query(tree, qpad[s * qloc:(s + 1) * qloc], k)
     d = torch.cat(_all_gather(mesh, res.distances))
     i = torch.cat(_all_gather(mesh, res.indices))
     return d[:Q].cpu().numpy(), i[:Q].cpu().numpy()

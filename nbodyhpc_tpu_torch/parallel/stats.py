@@ -12,7 +12,8 @@ import torch.distributed as dist
 
 from ..core.cells import CellList
 from ..core.points import round_up
-from ..ops import knn as _knn
+from ..ops.knn import default_ladder
+from ..ops.knn_device import cell_knn_query
 from .mesh import SlabMesh
 from .sharded import _tree_mesh, _wire
 
@@ -33,7 +34,7 @@ def cdf_queries(tree: CellList, n_queries: int, nd: int, seed: int = 0):
     # the JAX function's chunk, which bounds its per-pass candidate block;
     # here it only rounds qloc (so it sets the result): each rank answers
     # its slice in one call
-    ladder = _knn.default_ladder(tree)
+    ladder = default_ladder(tree)
     bmax = max(((2 * r + 1) ** 3) * c for r, c in ladder)
     ch = int(min(max((n_queries + nd - 1) // nd, 1),
                  max(2048, (1 << 25) // bmax)))
@@ -52,8 +53,9 @@ def knn_cdf_sharded(tree: CellList, k, radii, n_queries: int = 65536,
     Equal to the JAX function's result on a mesh of the same size: the
     query count ``nd * qloc`` (so the result) depends on the mesh size, as
     there. Every rank draws the whole ``Philox(seed)`` stream and answers
-    its slice of ``qloc`` queries in one :func:`..ops.knn.cell_knn_query`
-    call (the candidate kernels on the card).
+    its slice of ``qloc`` queries in one
+    :func:`..ops.knn_device.cell_knn_query` call (the candidate kernels on
+    the card).
     """
     mesh = _tree_mesh(tree, mesh)
     nd, s = mesh.size, mesh.rank
@@ -63,8 +65,8 @@ def knn_cdf_sharded(tree: CellList, k, radii, n_queries: int = 65536,
     radii = np.asarray(radii, np.float32)
 
     q, qloc = cdf_queries(tree, n_queries, nd, seed)
-    dist_k = _knn.cell_knn_query(tree, q[s * qloc:(s + 1) * qloc],
-                                 kmax).distances
+    dist_k = cell_knn_query(tree, q[s * qloc:(s + 1) * qloc],
+                            kmax).distances
     kth = dist_k[:, [kk - 1 for kk in ks]]  # [qloc, nk]
     r_t = torch.as_tensor(radii, device=kth.device)
     hist = (kth[:, :, None] <= r_t[None, None, :]).sum(0, dtype=torch.int64)

@@ -6,10 +6,10 @@ The children of ``tests/test_cancellation.py`` on the port, with
 the next chunk (reference: the ``PyErr_CheckSignals`` poll every 1000
 queries, kdtree/src/cpp/pybind.cpp:127-134, and the render's fence-wait
 slices, rasterization/src/cpp/point_renderer.cpp:797-818). In the port the
-chunk loops are Python loops (``ops/knn.py::ladder_knn``'s query chunks,
-the oracle's 256-particle chunks, a streamed render's batches), where
-Python delivers the signal. A streamed render must also leave no reader
-thread behind. Each child's call would run for many seconds; the abort
+chunk loops are Python loops (``ops/knn_device.py::ladder_knn``'s query
+chunks, the oracle's 256-particle chunks, a streamed render's batches),
+where Python delivers the signal. A streamed render must also leave no
+reader thread behind. Each child's call would run for many seconds; the abort
 must come within one chunk."""
 from test_cancellation import _run_sigint_child
 

@@ -257,8 +257,8 @@ def test_ladder_matches_jax(case):
     jt = JKDTree(pts, boxsize=box)
     want = jknn.cell_knn_query(jt._tree, jt._dev, q, k, with_stats=True)
     for tree in (port_tree(jt), TKDTree(pts, boxsize=box, device="cpu")._tree):
-        got = tknn.cell_knn_query(tree, q, k, with_stats=True,
-                                  use_kernel="never")
+        got = tkd.cell_knn_query(tree, q, k, with_stats=True,
+                                 engine="ladder")
         assert_bit_equal(got.distances.numpy(), want.distances)
         np.testing.assert_array_equal(got.indices.numpy().astype(np.uint32),
                                       want.indices)
@@ -278,8 +278,8 @@ def test_ladder_ties_take_the_lowest_position():
         jt = JKDTree(pts, boxsize=box, leafsize=32)
         want_d, want_i = jt.query(q, k=8)
         assert (want_d[:, 0] == want_d[:, -1]).all()  # a tie across all 8
-        got_d, got_i = tknn.cell_knn_query(port_tree(jt), q, 8,
-                                           use_kernel="never")[:2]
+        got_d, got_i = tkd.cell_knn_query(port_tree(jt), q, 8,
+                                          engine="ladder")[:2]
         assert_bit_equal(got_d.numpy(), want_d)
         np.testing.assert_array_equal(got_i.numpy().astype(np.uint32),
                                       want_i)

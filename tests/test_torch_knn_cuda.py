@@ -376,9 +376,9 @@ def test_ladder_kernel_equals_the_torch_rungs(cuda, case, periodic, k):
 
     # the whole ladder, brute pass included, against the CPU's
     before = _launches("knn.ladder")
-    res = knn.ladder_knn(card, qc, k, with_stats=True)
+    res = kd.ladder_knn(card, qc, k, with_stats=True)
     assert _launches("knn.ladder") == before + 1
-    want = knn.ladder_knn(tree, q, k, with_stats=True)
+    want = kd.ladder_knn(tree, q, k, with_stats=True)
     assert _bit_equal(res.distances.cpu(), want.distances)
     assert torch.equal(res.indices.cpu(), want.indices)
     for g, w in zip(res.stats, want.stats):
@@ -394,15 +394,15 @@ def test_ladder_kernel_empty_batch_and_large_k(cuda):
     d2, slot, conv, stats = kc.knn_ladder(card, empty, 16, ladder)
     assert d2.shape == (0, 16) and conv.shape == (0,)
     assert all(s.shape == (0,) for s in stats)
-    res = knn.ladder_knn(card, empty, 16, with_stats=True)
+    res = kd.ladder_knn(card, empty, 16, with_stats=True)
     assert res.distances.shape == (0, 16) and res.indices.shape == (0, 16)
     assert _launches("knn.ladder") == before  # nothing launched
     # k above the kernel's: the torch rungs on the card, no launch
     rungs = profiling.counters().get("knn.rungs", 0)
-    res = knn.ladder_knn(card, q.to(cuda), kc.TOPK_MAX + 1, with_stats=True)
+    res = kd.ladder_knn(card, q.to(cuda), kc.TOPK_MAX + 1, with_stats=True)
     assert _launches("knn.ladder") == before
     assert profiling.counters()["knn.rungs"] > rungs
-    want = knn.ladder_knn(tree, q, kc.TOPK_MAX + 1, with_stats=True)
+    want = kd.ladder_knn(tree, q, kc.TOPK_MAX + 1, with_stats=True)
     assert _bit_equal(res.distances.cpu(), want.distances)
     assert torch.equal(res.indices.cpu(), want.indices)
 
@@ -427,13 +427,13 @@ def test_ladder_kernel_rows_reach_the_brute_pass_a_chunk_at_a_time(
         rows.append(queries_w.shape[0])
         return brute(xyz, n, queries_w, k, box)
 
-    monkeypatch.setattr(knn, "_streaming_brute_pass", counted)
+    monkeypatch.setattr(kd, "_streaming_brute_pass", counted)
     before = _launches("knn.ladder")
     kernel_rows = profiling.counters().get("knn.ladder.kernel_rows", 0)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(cuda)
     base = torch.cuda.memory_allocated(cuda)
-    res = knn.ladder_knn(card, qc, k, with_stats=True)
+    res = kd.ladder_knn(card, qc, k, with_stats=True)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(cuda) - base
     assert _launches("knn.ladder") == before + 1
@@ -465,6 +465,6 @@ def test_ladder_kernel_wrapper_raises_on_the_card(cuda):
         kc.knn_ladder(dataclasses.replace(card, offsets=card.offsets.long()),
                       qc, 16, ladder)
     # the route makes strided queries contiguous itself
-    d, i = knn.ladder_knn(card, qc.T.contiguous().T, 16)[:2]
-    rd, ri = knn.ladder_knn(card, qc, 16)[:2]
+    d, i = kd.ladder_knn(card, qc.T.contiguous().T, 16)[:2]
+    rd, ri = kd.ladder_knn(card, qc, 16)[:2]
     assert _bit_equal(d, rd) and torch.equal(i, ri)

@@ -20,6 +20,7 @@ from nbodyhpc_tpu_torch import _build
 from nbodyhpc_tpu_torch.kdtree import KDTree
 from nbodyhpc_tpu_torch.ops import knn
 from nbodyhpc_tpu_torch.ops import knn_cuda as kc
+from nbodyhpc_tpu_torch.ops import knn_device as kd
 from nbodyhpc_tpu_torch.utils import profiling
 
 
@@ -55,7 +56,7 @@ def test_cpu_tree_keeps_the_torch_rungs(no_library, k):
     tree = _tree("uniform")
     q = torch.from_numpy(_points(50, 9))
     profiling.reset()
-    got = knn.ladder_knn(tree, q, k, with_stats=True)
+    got = kd.ladder_knn(tree, q, k, with_stats=True)
     c = profiling.counters()
     assert c["knn.rungs"] >= 1
     assert c.get("knn.ladder.kernel_rows", 0) == 0
@@ -70,7 +71,7 @@ def test_cpu_tree_keeps_the_torch_rungs(no_library, k):
     ("cpu", kc.TOPK_MAX + 1, False)])
 def test_ladder_route_follows_the_tree_device_and_k(device, k, want):
     tree = types.SimpleNamespace(device=torch.device(device))
-    assert knn.ladder_on_kernel(tree, k) is want
+    assert kc.ladder_on_kernel(tree, k) is want
 
 
 @pytest.mark.parametrize("case,npad,want", [
@@ -159,9 +160,9 @@ def test_brute_pass_takes_the_unconverged_rows_a_chunk_at_a_time(
         rows.append(queries_w.shape[0])
         return brute(xyz, n, queries_w, k, box)
 
-    monkeypatch.setattr(knn, "ladder_rungs", unconverged)
-    monkeypatch.setattr(knn, "_streaming_brute_pass", counted)
-    d2, slot, stats = knn._ladder_query(tree, q, k, ladder, False)
+    monkeypatch.setattr(kd, "ladder_rungs", unconverged)
+    monkeypatch.setattr(kd, "_streaming_brute_pass", counted)
+    d2, slot, stats = kd._ladder_query(tree, q, k, ladder, False)
     assert rows == [step, 5]
     box = [1.0] * 3 if periodic else None
     want_d2, want_slot = brute(tree.xyz, tree.n,

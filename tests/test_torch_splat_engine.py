@@ -59,7 +59,9 @@ def test_buckets_match_jax():
     for tg, jg in zip(sc.BUCKETS, jsp.BUCKETS):
         for field in sc._Geom._fields:
             assert getattr(tg, field) == getattr(jg, field), (tg, field)
-    assert (sc.TX, sc.TZ, sc.NF, sc.NI) == (jsp.TX, jsp.TZ, jsp.NF, jsp.NI)
+    assert (sc.TX, sc.TZ) == (jsp.TX, jsp.TZ)
+    # the port's stream is the JAX stream's float channels without the spare
+    assert sc.NF == jsp.NF - 1
     for r in (0.3, 2.0, 2.5, 6.0, 15.0, 40.0):
         assert [g.F for g in sc.bucket_ladder(r)] == [
             g.F for g in jsp.bucket_ladder(r)]
@@ -122,17 +124,17 @@ def _jax_prep(grid, ppx, w, rpx, key):
 
 def test_prep_channels_and_offsets_match_jax():
     grid, ppx, w, rpx, key = _g8_batch()
-    _, ntiles, (jf, ji, jst, jcn, jao) = _jax_prep(grid, ppx, w, rpx, key)
-    tf, ti, tst, tcn, tao = sc._prep_body(_t(ppx), _t(w), _t(rpx), _t(key),
-                                          grid, sc.G8)
+    _, ntiles, (jf, _, jst, jcn, jao) = _jax_prep(grid, ppx, w, rpx, key)
+    tf, tst, tcn, tao = sc._prep_body(_t(ppx), _t(w), _t(rpx), _t(key),
+                                      grid, sc.G8)
     n = ppx.shape[0]
     assert ntiles == 8 and int((tcn > 0).sum()) > 1  # multi-tile
     np.testing.assert_array_equal(tst.numpy(), jst)
     np.testing.assert_array_equal(tcn.numpy(), jcn)
     np.testing.assert_array_equal(tao.numpy(), jao)
+    assert tf.shape == (sc.NF, n)
     np.testing.assert_array_equal(tf.numpy().view(np.int32),
-                                  jf[:, :n].view(np.int32))
-    np.testing.assert_array_equal(ti.numpy(), ji[:, :n])
+                                  jf[:sc.NF, :n].view(np.int32))
 
 
 def test_align_reference_bit_equal_to_jax_align_kernel():
@@ -154,16 +156,21 @@ def test_align_reference_bit_equal_to_jax_align_kernel():
         jnp.asarray(jf), jnp.asarray(ji), dstf, dsti, np_pad=np_pad,
         ntiles=ntiles, interpret=True, geom=jsp.G8)
     af, ai = np.asarray(af), np.asarray(ai)
-    nrows = int(((jcn + sc.G8.CH - 1) // sc.G8.CH).sum()) * sc.G8.CH
-    tf, ti = sc.align(_t(jst), _t(jcn), _t(jao), _t(jf), _t(ji), sc.G8.CH,
-                      sc.G8.HALO, nrows)
-    assert tf.shape == (sc.NF, nrows) and ti.shape == (sc.NI, nrows)
+    ch = sc.G8.CH
+    nrows = int(((jcn + ch - 1) // ch).sum()) * ch
+    tf = sc.align(_t(jst), _t(jcn), _t(jao), _t(jf[:sc.NF]), ch, nrows)
+    assert tf.shape == (sc.NF, nrows)
     np.testing.assert_array_equal(tf.numpy().view(np.int32),
-                                  af[:, :nrows].view(np.int32))
-    np.testing.assert_array_equal(ti.numpy(), ai[:, :nrows])
-    # every CH-chunk holds one tile
-    tiles = ti.numpy()[0].reshape(-1, sc.G8.CH)
-    assert np.all(tiles == tiles[:, :1])
+                                  af[:sc.NF, :nrows].view(np.int32))
+    # every CH-chunk holds one tile: the offsets lay the tiles' CH-rounded
+    # runs end to end, and the JAX kernel's tile channel agrees chunk by chunk
+    aligned = (jcn + ch - 1) // ch * ch
+    np.testing.assert_array_equal(jao, np.cumsum(aligned) - aligned)
+    chunk_tile = np.repeat(np.arange(ntiles), aligned // ch)
+    assert chunk_tile.size * ch == nrows and len(set(chunk_tile)) > 1
+    np.testing.assert_array_equal(ai[0, :nrows].reshape(-1, ch),
+                                  np.broadcast_to(chunk_tile[:, None],
+                                                  (chunk_tile.size, ch)))
 
 
 def test_prepartition_matches_jax():
@@ -249,14 +256,12 @@ def test_wrappers_reject_unsupported_devices_and_shapes():
     meta = torch.device("meta")
     z = torch.zeros(4, dtype=torch.int32, device=meta)
     f = torch.zeros((sc.NF, 8), device=meta)
-    i = torch.zeros((sc.NI, 8), dtype=torch.int32, device=meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        sc.align(z, z, z, f, i, sc.G8.CH, sc.G8.HALO, 0)
+        sc.align(z, z, z, f, sc.G8.CH, 0)
     with pytest.raises(ValueError, match="unsupported device"):
         sc.deposit(f, 0, torch.zeros((4, 4, 4), device=meta), sc.G8)
     with pytest.raises(ValueError, match="one device"):
-        sc.align(torch.zeros(4, dtype=torch.int32), z, z, f, i, sc.G8.CH,
-                 sc.G8.HALO, 0)
+        sc.align(torch.zeros(4, dtype=torch.int32), z, z, f, sc.G8.CH, 0)
     with pytest.raises(ValueError, match="different devices"):
         sc.deposit(f, 0, torch.zeros((4, 4, 4)), sc.G8)
     with pytest.raises(ValueError, match="attrs"):

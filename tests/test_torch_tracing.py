@@ -199,7 +199,7 @@ def test_render_counters_equal_counts_made_apart(traced):
     part = sc.prepartition(torch.from_numpy(gpos), torch.ones(len(gpos)),
                            torch.from_numpy(gr), PPU, (GRID,) * 3)
     streams = [sc.bucket_stream(part, bi) for bi in range(len(sc.BUCKETS))]
-    assert c["render.chunks"] == sum(s[2] for s in streams if s is not None)
+    assert c["render.chunks"] == sum(s[1] for s in streams if s is not None)
 
 
 def test_knn_counters_equal_counts_made_apart(traced):
