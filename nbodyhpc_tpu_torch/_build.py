@@ -51,8 +51,8 @@ SIGNATURES = {
     "splat_dense_count": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P),
     # pos rad val n gx gy gz off cursor list stream
     "splat_dense_fill": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    # pos rad val off list S vol gx gy gz stream
-    "splat_dense": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
+    # pos rad val off list S vol gx gy gz counts stream
+    "splat_dense": (_P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P),
     # q qstride piece_q0 piece_qn piece_pid npieces run_start run_len
     # run_cell run_ncell nruns offsets xyz xstride periodic L0 L1 L2 iL0 iL1
     # iL2 C0 C1 C2 lo0 lo1 lo2 h0 h1 h2 ih0 ih1 ih2 m0 m1 m2 out_d2 out_slot

@@ -163,4 +163,14 @@ __device__ __forceinline__ int subcell_count(const float (&u)[kSlots<SC>],
   return count;
 }
 
+// subcell_count's interior test (max az < rab_lo) at dz = pz - vz, from the
+// first and last subcell offsets ulo = u[0], uhi = u[S - 1]: the rounded
+// differences dz - u[c] fall as u[c] grows, so the largest of their squares
+// is the first's or the last's, and the test is exactly subcell_count's.
+__device__ __forceinline__ bool interior(float ulo, float uhi, float rab_lo,
+                                         float dz) {
+  const float a = dz - ulo, b = dz - uhi;
+  return fmaxf(a * a, b * b) < rab_lo;
+}
+
 }  // namespace splat

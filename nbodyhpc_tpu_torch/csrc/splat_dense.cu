@@ -28,15 +28,29 @@
 //    memory. Each of its 256 threads owns one (x, y) column of the tile and
 //    walks the tile's rows; for a row that reaches its column it walks the
 //    column's z voxels inside the tile and adds each non-zero value with a
-//    shared-memory atomic. Then the block adds the tile into the volume once,
-//    with plain loads and stores: no other block owns those voxels, and the
-//    deposits of the kernel buckets ran before on the same stream.
-// 3. Interior and exterior voxels without the S^3 loop: the per-voxel
-//    subcell count of splat_common.h, shared with the deposit kernel. A
-//    column with rab_hi <= 0 counts 0 everywhere (az >= 0), and along a
-//    column only the slices |vz - floor(pz)| < ceil(sqrt(rab_hi)) + 3 can
-//    count more than 0 (|dz - u| >= that less 2 outside), so the walk is cut
-//    to them.
+//    plain shared-memory add: no other thread writes the column, and it
+//    adds the rows in the tile list's order. Then the block adds the tile
+//    into the volume once, with plain loads and stores: no other block owns
+//    those voxels, and the deposits of the kernel buckets ran before on the
+//    same stream.
+// 3. Interior runs and the shell, without the S^3 loop. A voxel is interior
+//    (count S^3, value exactly the row's factor) when max az < rab_lo, the
+//    first test of splat_common.h's subcell count. Along a column dz = pz -
+//    vz falls with vz (rounded subtraction is monotone), and each az = (dz -
+//    u)^2 falls and then rises, so the interior voxels form one interval of
+//    slices. A guess from sqrt(rab_lo) and exact tests at its ends
+//    (interior_run, usually 2-4 tests) find it; the gates hold on one
+//    interval of slices too (splat_deposit.cu, point 1), so when they hold
+//    at both ends of the run, each of its voxels gets the factor by a plain
+//    add, with neither count nor gate. The walk's other voxels, the shell,
+//    take the per-voxel subcell count and gates; so does the
+//    whole walk when the run is empty (rab_lo <= 0, no voxel passes), its
+//    ends are not reached, or a gate fails at an end. A column with rab_hi
+//    <= 0 counts 0 everywhere (az >= 0), and along a column only the slices
+//    |vz - floor(pz)| < ceil(sqrt(rab_hi)) + 3 can count more than 0 (|dz -
+//    u| >= that less 2 outside), so the walk is cut to them. With a counts
+//    buffer, the launch adds the run voxels and the shell voxels into it,
+//    one atomic each a block.
 //
 // Exactness: a voxel gets w / (4/3 pi rp^3) * (count / S^3) where the
 // oracle's gates pass (ops/splat.py::footprint_values: the gl_ClipDistance
@@ -46,8 +60,9 @@
 // sub-pixel row (rp < 0.5) adds its raw weight to the voxel holding it, z in
 // (vz, vz + 1]. Every formula is in absolute voxel coordinates, so a row's
 // window cut by the grid's faces covers exactly footprint and grid, as the
-// plain pass's clamped window does. Only the order of the additions differs.
-// Build with --fmad=false (see splat_common.h).
+// plain pass's clamped window does. A run voxel gets v, which is v * 1.0f,
+// the term its count gives. Only the order of the additions differs from
+// the plain pass's. Build with --fmad=false (see splat_common.h).
 //
 // Rows: pos float32 [n][3] in pixel units, rad float32 [n] (pixel radius),
 // val float32 [n] (the per-row factor: w / (4/3 pi rp^3), or w for a
@@ -151,13 +166,84 @@ bin_fill(const float* __restrict__ pos, const float* __restrict__ rad,
       }
 }
 
+// The exact tests an end of a column's interior run may take past its guess.
+constexpr int kEndSteps = 3;
+
+// Moves b, a slice of [zl, zh], to the end of the column's interior run on
+// the side dir (-1: the run's least slice in [zl, zh], +1: its greatest):
+// interior at b, and b the window's end on that side or the next slice out
+// not interior. The interior slices form one interval (see the header's
+// point 3), so that b is the end. False when kEndSteps more tests do not
+// reach it.
+__device__ __forceinline__ bool run_end(float pz, float ulo, float uhi,
+                                        float rab_lo, int zl, int zh, int dir,
+                                        int& b) {
+  const auto inside = [&](int vz) {
+    return splat::interior(ulo, uhi, rab_lo, pz - static_cast<float>(vz));
+  };
+  const int lim = dir < 0 ? zl : zh;
+  if (inside(b)) {
+    for (int k = 0; k < kEndSteps; ++k) {
+      if (b == lim || !inside(b + dir)) return true;
+      b += dir;
+    }
+    return false;
+  }
+  for (int k = 0; k < kEndSteps; ++k) {
+    b -= dir;
+    if (b < zl || b > zh) return false;
+    if (inside(b)) return true;
+  }
+  return false;
+}
+
+// The column's interior run inside [zl, zh] (rab_lo > 0): [ra, rb], the
+// slices whose subcell count is S^3. The guess solves |pz - vz - u| < s,
+// s = sqrt(rab_lo), for the first and last subcell offsets; run_end moves
+// each end onto the exact test. False when the guess misses the window or
+// an end is not reached: the caller then counts every slice.
+__device__ __forceinline__ bool interior_run(float pz, float ulo, float uhi,
+                                             float rab_lo, int zl, int zh,
+                                             int& ra, int& rb) {
+  const float s = sqrtf(rab_lo);
+  ra = max(static_cast<int>(floorf((pz - ulo) - s)) + 1, zl);
+  rb = min(static_cast<int>(ceilf((pz - uhi) + s)) - 1, zh);
+  return ra <= rb && run_end(pz, ulo, uhi, rab_lo, zl, zh, -1, ra) &&
+         run_end(pz, ulo, uhi, rab_lo, zl, zh, 1, rb);
+}
+
+// Adds the block's totals a and b into counts[0] and counts[1], one atomic
+// each. Every thread of the block calls it.
+__device__ __forceinline__ void add_counts(long long a, long long b,
+                                           unsigned long long* counts) {
+  __shared__ long long part[2][kThreads / 32];
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, o);
+    b += __shfl_down_sync(0xffffffffu, b, o);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    part[0][warp] = a;
+    part[1][warp] = b;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kThreads / 32; ++w) {
+      part[0][0] += part[0][w];
+      part[1][0] += part[1][w];
+    }
+    atomicAdd(counts, static_cast<unsigned long long>(part[0][0]));
+    atomicAdd(counts + 1, static_cast<unsigned long long>(part[1][0]));
+  }
+}
+
 template <int SC>  // SC = compile-time subsample, 0 = runtime s_rt
 __global__ void __launch_bounds__(kThreads)
 dense_kernel(const float* __restrict__ pos, const float* __restrict__ rad,
              const float* __restrict__ val, const long long* __restrict__ off,
              const int* __restrict__ list, int s_rt,
              float* __restrict__ vol, int gx, int gy, int gz, int nty,
-             int ntz) {
+             int ntz, unsigned long long* __restrict__ counts) {
   extern __shared__ float tile[];  // [kTX][kTY][kZS]
   const int t = blockIdx.x;
   const long long j0 = off[t], j1 = off[t + 1];
@@ -176,6 +262,7 @@ dense_kernel(const float* __restrict__ pos, const float* __restrict__ rad,
   const float s3 = static_cast<float>(S3);
   float u[kS];
   splat::subcell_offsets<SC>(u, S);
+  const float ulo = u[0], uhi = u[S - 1];
 
   // this thread's column: each warp a 4 x 8 patch of the 16 x 16 columns,
   // so its lanes meet a sphere with similar z extents
@@ -183,9 +270,10 @@ dense_kernel(const float* __restrict__ pos, const float* __restrict__ rad,
   const int lx = (warp >> 1) * 4 + (lane >> 3);
   const int ly = (warp & 1) * 8 + (lane & 7);
   const int vx = x0 + lx, vy = y0 + ly;
-  float* col = tile + (lx * kTY + ly) * kZS;  // col[vz - z0]
+  float* col = tile + (lx * kTY + ly) * kZS;  // col[vz - z0], this thread's
   const int za = z0, zb = min(z0 + kTZ, gz) - 1;
   const float vxf = static_cast<float>(vx), vyf = static_cast<float>(vy);
+  long long run_voxels = 0, shell_voxels = 0;
 
   if (vx < gx && vy < gy) {
     for (long long j = j0; j < j1; ++j) {
@@ -204,7 +292,7 @@ dense_kernel(const float* __restrict__ pos, const float* __restrict__ rad,
         const float vzf = static_cast<float>(vz);
         if (vx == fx && vy == fy && vz >= za && vz <= zb && pz > vzf &&
             pz <= vzf + 1.0f)
-          atomicAdd(col + (vz - z0), v);
+          col[vz - z0] += v;
         continue;
       }
       const float r2 = r * r;
@@ -217,14 +305,33 @@ dense_kernel(const float* __restrict__ pos, const float* __restrict__ rad,
       const int ze = static_cast<int>(ceilf(sqrtf(rab_hi))) + 3;
       const int zl = max(fz - min(R, ze), za);
       const int zh = min(fz + min(R, ze), zb);
-      for (int vz = zl; vz <= zh; ++vz) {
+      // the interior run [ra, rb]: count S^3, so each voxel gets v * 1.0f,
+      // where the gates hold at both ends (then on all of it)
+      int ra = zh + 1, rb = zh;
+      if (rab_lo > 0.0f) {
+        int a, b;
+        if (interior_run(pz, ulo, uhi, rab_lo, zl, zh, a, b) &&
+            splat::gated(cx, cy, pz, r, r2, a) &&
+            splat::gated(cx, cy, pz, r, r2, b)) {
+          ra = a;
+          rb = b;
+        }
+      }
+      for (int vz = ra; vz <= rb; ++vz) col[vz - z0] += v;
+      // the shell: the walk's other slices, [zl, ra) and (rb, zh], counted
+      const int nlo = ra - zl;
+      const int nshell = (zh - zl + 1) - (rb - ra + 1);
+      run_voxels += rb - ra + 1;
+      shell_voxels += max(nshell, 0);
+      for (int k = 0; k < nshell; ++k) {
+        const int vz = k < nlo ? zl + k : rb + 1 + (k - nlo);
         const int count = splat::subcell_count<SC>(
             u, S, ax, ay, r2, rab_lo, rab_hi, pz - static_cast<float>(vz));
         if (count == 0) continue;
         if (!splat::gated(cx, cy, pz, r, r2, vz)) continue;
         // count / S^3 is 1.0f exactly for an interior voxel
-        atomicAdd(col + (vz - z0),
-                  v * (count == S3 ? 1.0f : static_cast<float>(count) / s3));
+        col[vz - z0] +=
+            v * (count == S3 ? 1.0f : static_cast<float>(count) / s3);
       }
     }
   }
@@ -239,6 +346,7 @@ dense_kernel(const float* __restrict__ pos, const float* __restrict__ rad,
     if (x < gx && y < gy && z < gz && s != 0.0f)
       vol[(static_cast<long long>(x) * gy + y) * gz + z] += s;
   }
+  if (counts != nullptr) add_counts(run_voxels, shell_voxels, counts);
 }
 
 int num_tiles(int g, int T) { return (g + T - 1) / T; }
@@ -288,27 +396,30 @@ extern "C" int splat_dense_fill(const float* pos, const float* rad,
 }
 
 // Deposits the binned rows into vol (gx, gy, gz), adding to what it holds.
+// counts: null, or int64 [2] to which the launch adds the voxels its
+// interior runs added and the voxels it counted (the shells).
 // Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int splat_dense(const float* pos, const float* rad,
                            const float* val, const long long* off,
                            const int* list, int S, float* vol, int gx, int gy,
-                           int gz, cudaStream_t stream) {
+                           int gz, long long* counts, cudaStream_t stream) {
   if (S < 1 || S > kMaxS || gx <= 0 || gy <= 0 || gz <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nty = num_tiles(gy, kTY), ntz = num_tiles(gz, kTZ);
   const int nt = num_tiles(gx, kTX) * nty * ntz;
+  auto* cnt = reinterpret_cast<unsigned long long*>(counts);
   if (S == 4) {
     cudaFuncSetAttribute(dense_kernel<4>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(kTileBytes));
     dense_kernel<4><<<nt, kThreads, kTileBytes, stream>>>(
-        pos, rad, val, off, list, S, vol, gx, gy, gz, nty, ntz);
+        pos, rad, val, off, list, S, vol, gx, gy, gz, nty, ntz, cnt);
   } else {
     cudaFuncSetAttribute(dense_kernel<0>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(kTileBytes));
     dense_kernel<0><<<nt, kThreads, kTileBytes, stream>>>(
-        pos, rad, val, off, list, S, vol, gx, gy, gz, nty, ntz);
+        pos, rad, val, off, list, S, vol, gx, gy, gz, nty, ntz, cnt);
   }
   return static_cast<int>(cudaGetLastError());
 }

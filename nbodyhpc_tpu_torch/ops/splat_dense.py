@@ -40,6 +40,10 @@ from .splat import (
     required_halfwidth,
 )
 
+#: the dense kernel's counters: voxels its interior runs filled, voxels it
+#: counted one by one (the shells); kept only while a profiler records
+DENSE_COUNTERS = ("splat.dense.run_voxels", "splat.dense.shell_voxels")
+
 #: geometric halfwidth ladder; bucket R covers pixel radii <= R - 3
 #: (required_halfwidth = ceil(rpx) + 3)
 HALF_BUCKETS = (12, 20, 36, 68, 132, 260)
@@ -144,12 +148,20 @@ def dense_deposit(positions_px, weights, radii_px, vol,
     ``csrc/splat_dense.cu``; returns ``vol``.
 
     Per voxel the value is :func:`dense_reference`'s; only the order of the
-    sums differs (shared-memory atomics). Bound by the voxels the spheres
-    hold: each tile of the volume is summed in shared memory and written
-    once (see the source). The binning reads one number back, the length
+    sums differs (each tile's columns in the tile list's order, then one
+    add into the volume). Bound by the voxels the spheres hold: each tile
+    of the volume is summed in shared memory, one thread a column with
+    plain adds, and written once. Along a column a row's interior voxels
+    form one run, found by exact tests at its ends and filled with the
+    row's factor; only the shell around it takes the per-voxel subcell
+    count (see the source). The binning reads one number back, the length
     of the tile lists (one device sync). One span,
     ``nbodyhpc.render.dense.bin``, times the per-row factors and the
-    binning; counter ``splat.dense.launches``.
+    binning; counter ``splat.dense.launches``. While a profiler records,
+    the kernel also counts on the card the voxels its runs filled and those
+    it counted one by one, :data:`DENSE_COUNTERS`, which
+    :func:`~nbodyhpc_tpu_torch.utils.profiling.counters` reads back; with
+    no profiler the kernel counts nothing.
     """
     dev = vol.device
     _require(dev.type == "cuda", f"dense_deposit: unsupported device {dev}")
@@ -192,9 +204,12 @@ def dense_deposit(positions_px, weights, radii_px, vol,
                                    val.data_ptr(), n, *grid, off.data_ptr(),
                                    cnt.data_ptr(), rows.data_ptr(), stream)
         _build.check(err, "splat_dense_fill launch")
+    counts = profiling.device_counts(DENSE_COUNTERS, dev)
     err = lib.splat_dense(pos.data_ptr(), rad.data_ptr(), val.data_ptr(),
                           off.data_ptr(), rows.data_ptr(), subsample,
-                          vol.data_ptr(), *grid, stream)
+                          vol.data_ptr(), *grid,
+                          None if counts is None else counts.data_ptr(),
+                          stream)
     profiling.count("splat.dense.launches")
     _build.check(err, "splat_dense launch")
     return vol

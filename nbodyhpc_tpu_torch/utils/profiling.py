@@ -21,7 +21,9 @@ clears them.
 
 **Counters** (:func:`count`) are always on: each adds a number the host
 already holds, so neither a counter nor a span adds a device sync.
-:func:`counters` returns a snapshot.
+:func:`counters` returns a snapshot. While a profiler records, a kernel
+may also count on the card, into a tensor of :func:`device_counts`; only
+:func:`counters` reads it back.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ MAX_RECORDS = 65_536
 _OFF = contextlib.nullcontext()
 _records: list = []
 _counters: dict = {}
+_device: dict = {}  # (names, device) -> [int64 tensor, written since read]
 _lock = threading.Lock()
 _open = threading.local()
 _calls = itertools.count()
@@ -135,8 +138,37 @@ def count(name: str, n: int = 1) -> None:
         _counters[name] = _counters.get(name, 0) + n
 
 
+def device_counts(names, device):
+    """While a ``torch.profiler`` session records: an int64 tensor on
+    ``device``, one entry a name of ``names``, into which a kernel adds its
+    counts; the same tensor for the same names and device. :func:`counters`
+    adds what it holds to those counters and zeroes it. None when nothing
+    records: the kernel then counts nothing, and no call reads the card."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    key = (tuple(names), torch.device(device))
+    with _lock:
+        slot = _device.get(key)
+        if slot is None:
+            slot = _device[key] = [
+                torch.zeros(len(key[0]), dtype=torch.int64, device=device),
+                False]
+        slot[1] = True
+        return slot[0]
+
+
 def counters() -> dict:
-    """A snapshot of every counter: {name: total}."""
+    """A snapshot of every counter: {name: total}. Reads back the tensors of
+    :func:`device_counts` written since the last read (waiting for the
+    kernels that write them), and only those."""
+    with _lock:
+        due = [(key[0], slot[0]) for key, slot in _device.items() if slot[1]]
+        for slot in _device.values():
+            slot[1] = False
+    for names, values in due:
+        for name, v in zip(names, values.tolist()):
+            count(name, v)
+        values.zero_()
     with _lock:
         return dict(_counters)
 
@@ -146,6 +178,7 @@ def reset() -> None:
     with _lock:
         _records.clear()
         _counters.clear()
+        _device.clear()
 
 
 def records() -> list:

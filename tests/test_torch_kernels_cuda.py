@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from nbodyhpc_tpu_torch.ops import splat_cuda as sc
+from nbodyhpc_tpu_torch.ops.splat_dense import DENSE_COUNTERS
 from nbodyhpc_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
@@ -432,3 +433,72 @@ def test_dense_kernel_rows_off_the_grid(cuda):
     torch.cuda.synchronize()
     assert out is vol and bool((vol == 0.5).all())
     assert _launches("splat.dense") == before
+
+
+@pytest.mark.parametrize("subsample", [4, 3, 5])
+def test_dense_kernel_runs_across_tile_and_grid_faces(cuda, subsample):
+    """Rows whose interior runs cross the kernel's z tile faces (centres
+    within a radius of a multiple of 64) and the grid's faces: held to the
+    plain twin within 16 sqrt(n) ulps, as ``test_dense_kernel_matches_plain``
+    (S = 3 and 5 take the kernel's runtime-S path)."""
+    rng = np.random.default_rng(23 + subsample)
+    n, grid = 240, (80, 72, 150)
+    rpx = rng.uniform(15, 30, n)
+    pos = rng.uniform(0, 1, (n, 3)) * np.array([80.0, 72.0, 1.0])
+    face = rng.choice([0.0, 64.0, 128.0, 150.0], n)
+    pos[:, 2] = face + rng.uniform(-1, 1, n) * rpx
+    w = rng.uniform(0.5, 1.5, n)
+    pos, w, rpx = (torch.from_numpy(a.astype(np.float32))
+                   for a in (pos, w, rpx))
+    got, want, mag = _dense_pair(cuda, pos, w, rpx, grid, subsample)
+    assert float(mag.sum()) > 0
+    tol = 16 * np.sqrt(n) * torch.finfo(torch.float32).eps * mag
+    assert bool(((got - want).abs() <= tol).all()), float(
+        ((got - want).abs() - tol).max())
+    assert torch.equal(got == 0, want == 0)
+
+
+def _dense_render(cuda):
+    """A render through the public API whose dense rows are 20-30 px:
+    (renderer, positions, weights, radii, grid)."""
+    from nbodyhpc_tpu_torch.rasterizer import Container, PointRenderer
+
+    g = 96
+    rng = np.random.default_rng(29)
+    pos, w, rpx = _particles(3000, 31, rpx_hi=12.0)
+    rpx[:30] = torch.from_numpy(rng.uniform(20.0, 30.0, 30).astype(np.float32))
+    return PointRenderer(Container(device=cuda), g, g), pos, w, rpx / g, g
+
+
+def _dense_counts():
+    c = profiling.counters()
+    return tuple(c.get(k, 0) for k in DENSE_COUNTERS)
+
+
+def test_dense_kernel_counts_runs_while_traced(cuda):
+    """Under a profiler the dense kernel counts the voxels its interior
+    runs filled and those it counted one by one; ``counters()`` reads them
+    back, and on 20-30 px rows the runs hold most voxels."""
+    pr, pos, w, r, g = _dense_render(cuda)
+    run0, shell0 = _dense_counts()
+    launches = _launches("splat.dense")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        pr.render_points_volume(pos, w, r, g, float(g))
+    run1, shell1 = _dense_counts()
+    assert _launches("splat.dense") == launches + 1
+    assert run1 - run0 > shell1 - shell0 > 0
+
+
+def test_dense_kernel_counts_nothing_untraced(cuda):
+    """With no profiler the kernel gets no counts buffer: the counters stay
+    as they were, and no buffer waits to be read back."""
+    pr, pos, w, r, g = _dense_render(cuda)
+    before = _dense_counts()
+    launches = _launches("splat.dense")
+    pr.render_points_volume(pos, w, r, g, float(g))
+    assert _launches("splat.dense") == launches + 1
+    assert profiling.device_counts(DENSE_COUNTERS, cuda) is None
+    assert not any(written for _, written in profiling._device.values())
+    assert _dense_counts() == before

@@ -289,6 +289,26 @@ def test_store_keeps_at_most_its_cap(card_clock, monkeypatch):
     assert profiling.counters()["profiling.dropped"] == 6
 
 
+def test_device_counts_only_under_a_profiler():
+    """A kernel's counts tensor exists only while a profiler records; the
+    same tensor comes back for the same names, and ``counters()`` adds
+    what it holds, zeroes it, and reads nothing again until it is handed
+    out anew."""
+    names = ("test.a", "test.b")
+    profiling.reset()
+    assert profiling.device_counts(names, "cpu") is None
+    with torch.profiler.profile(activities=CPU):
+        t = profiling.device_counts(names, "cpu")
+        assert profiling.device_counts(names, "cpu") is t
+    t += torch.tensor([3, 5])
+    assert profiling.counters() == {"test.a": 3, "test.b": 5}
+    assert t.tolist() == [0, 0]
+    t += 7  # not handed out since: not read
+    assert profiling.counters() == {"test.a": 3, "test.b": 5}
+    profiling.reset()
+    assert profiling.counters() == {}
+
+
 def _reader(name, monkeypatch):
     monkeypatch.syspath_prepend(str(ROOT))
     path = ROOT / "portbench" / "metrics" / f"{name}.py"
